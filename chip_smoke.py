@@ -1,0 +1,457 @@
+#!/usr/bin/env python3
+"""Run the PyTorch port of COPML on one CUDA card and check it end to end.
+
+Phases (a failed phase fails the run; no failure is caught):
+  1. build    compile the CUDA kernels from src/repro_torch/kernels/csrc
+  2. kernels  hold modmatmul, modmatmul_batched and fused_step against their
+              plain torch versions (run on CPU copies: exact, bit for bit)
+              at ragged shapes and at the main path's shapes; time each
+              kernel and its plain version on the card with CUDA events
+  3. golden   api.fit on cuda reproduces the smoke goldens (weights, share
+              and history sha256) and the pinned mnist10_like /
+              linreg_smoke / cifar10_like / smoke_straggler shas of the JAX
+              package's runs
+  4. full     api.fit("cifar10_case2", "copml", "jit", iters=5) on the card
+              at the paper's full width (N=50, m=9019, d=3073, K=10, T=7);
+              kernel launch counts are reset just before it and read just
+              after, and the last step's fused_step operands are re-checked
+              against the plain version
+
+Output: one {"kernels": [...]} JSON line, the card's name and power limit
+(nvidia-smi), then {"ok": true, "device": {...}} as the last line.
+Details (per-shape timings, the ptxas report, a profile of two steps) go to
+chiprun_out/chip_smoke.json.
+
+  python3 chip_smoke.py            # every phase (needs one CUDA card)
+  python3 chip_smoke.py --quick    # build, ragged kernel checks, goldens
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+OUT_DIR = REPO / "chiprun_out"
+
+# smoke, key 0, 10 iterations (the JAX package's pinned goldens)
+GOLDEN_W = [0.25, -0.375, 0.375, 0.5, -0.125, 0.25, 0.875, 1.25, -0.5,
+            -1.125, -0.5, 0.125]
+GOLDEN_SHARES_SHA = \
+    "459aaa671b3d6708b4918f1e54b29e083cecf6c85b5b617f882720596399afaf"
+GOLDEN_HIST_SHA = \
+    "343e87b79c6ece3608774a43160dccbb80ef214111bdb0f9f9c066ead77f9e80"
+# (workload, iters) -> (shares sha, history sha) of the JAX package's
+# api.fit(..., "copml", "jit", key=0) with the legacy threefry stream
+PINNED = {
+    ("mnist10_like", 3): (
+        "ec665a028963a34ad6d3db0b2d5edadffb6e8bc51bb0c16bae48c7fcb5b1fe93",
+        "081ef4be1cf1058e8eb2291105a8f176891e1d063c9f047cd5168927862b09f4"),
+    ("linreg_smoke", 3): (
+        "b73e3759792db9706b1c7cde248419d1ea5989f68a7d262fcdf19a757d9a018e",
+        "6aeda2a10e06f4e07df80e48c6ff8f17d1dd5470eac3b7cf4ed941f31f172359"),
+    ("cifar10_like", 3): (
+        "a6b0724d58966fca077bbffbbfa518e42b8c692e5f347ab7ca5e5850be8bca8c",
+        "01df5eac47631ff6c7df2421dadb4469a826034da4fe8f58dc2a1978b6c26bc2"),
+    ("smoke_straggler", 4): (
+        "a475aab02794841823767404680ec5a9ea337a869c1503fc449c2ddc0c2179da",
+        "7ece876243ab5f5a5015f937a52c9f3374642f42ff6b4d36009288148a2fbae6"),
+}
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
+INT32_OPS_PER_S = 67e12        # H100 SXM 32-bit CUDA-core rate (fp32 table)
+
+TPU_KERNEL = {
+    "modmatmul": "src/repro/kernels/modmatmul.py:70",
+    "modmatmul_batched": "src/repro/kernels/modmatmul.py:106",
+    "fused_step": "src/repro/kernels/fused_step.py:138",
+}
+SOURCE = {
+    "modmatmul": "src/repro_torch/kernels/csrc/modmatmul.cu",
+    "modmatmul_batched": "src/repro_torch/kernels/csrc/modmatmul.cu",
+    "fused_step": "src/repro_torch/kernels/csrc/fused_step.cu",
+}
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def sha(arr, dtype) -> str:
+    import numpy as np
+    return hashlib.sha256(np.asarray(arr, dtype).tobytes()).hexdigest()
+
+
+class Checker:
+    """Runs kernel-vs-plain comparisons and keeps per-kernel records."""
+
+    def __init__(self, torch, np, P):
+        self.torch, self.np, self.P = torch, np, P
+        self.rng = np.random.default_rng(0)
+        self.gen = torch.Generator(device="cuda")
+        self.gen.manual_seed(0)
+        self.max_err = {k: 0 for k in TPU_KERNEL}
+        self.checks = {k: 0 for k in TPU_KERNEL}
+        self.rows: list = []
+
+    def field(self, *shape):
+        """Uniform field elements on the card, from a seeded generator."""
+        return self.torch.randint(0, self.P, shape, dtype=self.torch.int32,
+                                  device="cuda", generator=self.gen)
+
+    def compare(self, name, got, want, what):
+        got = got.cpu().to(self.torch.int64)
+        want = want.cpu().to(self.torch.int64)
+        if got.shape != want.shape:
+            raise AssertionError(f"{name} {what}: shape {tuple(got.shape)} "
+                                 f"!= {tuple(want.shape)}")
+        err = int((got - want).abs().max()) if got.numel() else 0
+        self.max_err[name] = max(self.max_err[name], err)
+        self.checks[name] += 1
+        if err:
+            raise AssertionError(f"{name} {what}: max |kernel - plain| = "
+                                 f"{err} (must be 0)")
+
+    def time_ms(self, fn, reps: int) -> float:
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+
+def bound(bytes_moved: float, ops: float) -> tuple:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernels(ck: Checker, quick: bool) -> dict:
+    """Ragged and main-path checks; returns the JSON rows per kernel."""
+    torch = ck.torch
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import modmatmul as mm
+    from repro_torch.kernels import ref
+
+    # -- ragged shapes: every tile shape, K past the 2048-term reduce,
+    #    strided (transposed) and broadcast operands
+    for (m, k, n) in [(5, 37, 101), (50, 7, 1000), (1, 8, 4099),
+                      (33, 3000, 17), (20, 2500, 5), (3, 5000, 300),
+                      (64, 64, 64), (65, 17, 129)]:
+        a, b = ck.field(m, k), ck.field(k, n)
+        ck.compare("modmatmul", mm.modmatmul(a, b),
+                   ref.modmatmul(a.cpu(), b.cpu()), f"({m},{k})@({k},{n})")
+    at, bt = ck.field(40, 30), ck.field(70, 40)
+    ck.compare("modmatmul", mm.modmatmul(at.t(), bt.t()),
+               ref.modmatmul(at.t().cpu(), bt.t().cpu()), "transposed views")
+    for (bsz, m, k, n) in [(3, 17, 40, 19), (13, 24, 13, 10), (2, 1, 9, 7)]:
+        a, b = ck.field(bsz, m, k), ck.field(bsz, k, n)
+        ck.compare("modmatmul_batched", mm.modmatmul_batched(a, b),
+                   ref.modmatmul_batched(a.cpu(), b.cpu()),
+                   f"({bsz},{m},{k})@({bsz},{k},{n})")
+    x = ck.field(5, 2100, 300)
+    y = ck.field(5, 2100, 1)
+    ck.compare("modmatmul_batched", mm.modmatmul_batched(x.transpose(1, 2), y),
+               ref.modmatmul_batched(x.cpu().transpose(1, 2), y.cpu()),
+               "transposed X^T y")
+    row = ck.field(13)
+    mix = ck.field(13, 13, 240)
+    ck.compare("modmatmul_batched",
+               mm.modmatmul_batched(row[None, None].expand(13, 1, 13), mix),
+               ref.modmatmul_batched(row.cpu()[None, None].expand(13, 1, 13),
+                                     mix.cpu()), "broadcast decode row")
+    for (n, m, d, c, deg) in [(5, 37, 29, 1, 1), (13, 37, 29, 10, 1),
+                              (5, 20, 3073, 1, 3), (13, 130, 24, 10, 1)]:
+        ops_ = fused_operands(ck, n, m, d, c, deg)
+        got = fs.fused_step(*ops_["args"], **ops_["kw"])
+        want = ref.fused_step(*[t.cpu() for t in ops_["args"]], **ops_["kw"])
+        for g, w_, what in zip(got, want, ("f", "new_w")):
+            ck.compare("fused_step", g, w_, f"N={n} m={m} d={d} C={c} {what}")
+    log(f"kernels: ragged checks passed {dict(ck.checks)}")
+    if quick:
+        return {}
+
+    # -- the main path's shapes at cifar10_case2 (N=50, K=10, T=7,
+    #    m=9019, d=3073, mk=902) and mnist10_like (C=10)
+    rows = {}
+    n_cl, m_rows, d, kk, t, mk = 50, 9019, 3073, 10, 7, 902
+    # Shamir share of X: (N, T) @ (T, m*d), the setup's largest GEMM
+    a, b = ck.field(n_cl, t), ck.field(t, m_rows * d)
+    out = mm.modmatmul(a, b)
+    ncols = b.shape[1]
+    for cols in (slice(0, 4096), slice(ncols - 4096, ncols)):
+        ck.compare("modmatmul", out[:, cols],
+                   ref.modmatmul(a.cpu(), b[:, cols].cpu()), "share X slice")
+    del out
+    ms = ck.time_ms(lambda: mm.modmatmul(a, b), 5)
+    plain = ck.time_ms(lambda: ref.modmatmul(a, b), 1)
+    bb, by = bound(4.0 * (a.numel() + b.numel() + n_cl * b.shape[1]),
+                   2.0 * n_cl * t * b.shape[1])
+    rows["modmatmul"] = dict(shape=f"({n_cl},{t})@({t},{b.shape[1]})",
+                             ms=ms, plain_ms=plain, bound_ms=bb, bound_by=by)
+    del a, b
+    torch.cuda.empty_cache()
+    # per-shape detail: LCC encode, reconstruct, per-iteration GEMMs
+    for label, (m, k, n) in {
+            "lcc_encode (setup, per holder)": (n_cl, kk + t, mk * d),
+            "reconstruct coded X (setup)": (1, t + 1, n_cl * mk * d),
+            "share (per iteration, mix)": (n_cl, t, n_cl * d),
+            "reconstruct all holders (per iteration)": (1, n_cl, n_cl * d),
+            "open model (per iteration)": (1, t + 1, d)}.items():
+        a, b = ck.field(m, k), ck.field(k, n)
+        ck.compare("modmatmul", mm.modmatmul(a, b)[:, :2048],
+                   ref.modmatmul(a.cpu(), b[:, :2048].cpu()), label)
+        ms_ = ck.time_ms(lambda: mm.modmatmul(a, b), 10)
+        pl_ = ck.time_ms(lambda: ref.modmatmul(a, b), 1)
+        bb_, _ = bound(4.0 * (a.numel() + b.numel() + m * n), 2.0 * m * k * n)
+        ck.rows.append(dict(kernel="modmatmul", what=label,
+                            shape=f"({m},{k})@({k},{n})", ms=ms_,
+                            plain_ms=pl_, bound_ms=bb_))
+        del a, b
+    torch.cuda.empty_cache()
+
+    # X^T y: (N, d, m) transposed view of the shares @ (N, m, 1)
+    x = ck.field(n_cl, m_rows, d)
+    y = ck.field(n_cl, m_rows, 1)
+    out = mm.modmatmul_batched(x.transpose(1, 2), y)
+    for i in (0, n_cl - 1):
+        ck.compare("modmatmul_batched", out[i],
+                   ref.modmatmul(x[i].cpu().t(), y[i].cpu()), f"X^T y[{i}]")
+    ms = ck.time_ms(lambda: mm.modmatmul_batched(x.transpose(1, 2), y), 5)
+    plain = ck.time_ms(
+        lambda: ref.modmatmul_batched(x.transpose(1, 2), y), 1)
+    bb, by = bound(4.0 * (x.numel() + y.numel() + out.numel()),
+                   2.0 * x.numel())
+    rows["modmatmul_batched"] = dict(
+        shape=f"({n_cl},{d},{m_rows})@({n_cl},{m_rows},1)", ms=ms,
+        plain_ms=plain, bound_ms=bb, bound_by=by)
+    del x, y, out
+    torch.cuda.empty_cache()
+    for label, (a, b) in {
+            "LCC encode model (per iteration)": (
+                ck.field(n_cl, kk + t)[None].expand(n_cl, n_cl, kk + t),
+                ck.field(n_cl, kk + t, d)),
+            "decode base (per iteration)": (
+                ck.field(n_cl)[None, None].expand(n_cl, 1, n_cl),
+                ck.field(n_cl, n_cl, d))}.items():
+        ck.compare("modmatmul_batched", mm.modmatmul_batched(a, b),
+                   ref.modmatmul_batched(a.cpu(), b.cpu()), label)
+        ms_ = ck.time_ms(lambda: mm.modmatmul_batched(a, b), 20)
+        pl_ = ck.time_ms(lambda: ref.modmatmul_batched(a, b), 3)
+        bb_, _ = bound(4.0 * (a[0].numel() + b.numel() + b.shape[0]
+                              * a.shape[1] * b.shape[2]),
+                       2.0 * b.shape[0] * a.shape[1] * b.shape[1] * b.shape[2])
+        ck.rows.append(dict(kernel="modmatmul_batched", what=label,
+                            shape=f"{tuple(a.shape)}@{tuple(b.shape)}",
+                            ms=ms_, plain_ms=pl_, bound_ms=bb_))
+
+    # fused step at cifar10_case2 (C=1) and mnist10_like (N=13, C=10)
+    for label, (n, m, dd, c) in {"cifar10_case2": (n_cl, mk, d, 1),
+                                 "mnist10_like": (13, 98, 24, 10)}.items():
+        ops_ = fused_operands(ck, n, m, dd, c, 1)
+        got = fs.fused_step(*ops_["args"], **ops_["kw"])
+        want = ref.fused_step(*[q.cpu() for q in ops_["args"]], **ops_["kw"])
+        for g, w_, what in zip(got, want, ("f", "new_w")):
+            ck.compare("fused_step", g, w_, f"{label} {what}")
+        ms_ = ck.time_ms(lambda: fs.fused_step(*ops_["args"], **ops_["kw"]),
+                         20)
+        pl_ = ck.time_ms(lambda: ref.fused_step(*ops_["args"], **ops_["kw"]),
+                         2)
+        nbytes = 4.0 * (n * m * dd + 7 * n * dd * c + 3 * n + 2)
+        bb_, by_ = bound(nbytes, 4.0 * n * m * dd * c)
+        rec = dict(shape=f"N={n} m={m} d={dd} C={c}", ms=ms_, plain_ms=pl_,
+                   bound_ms=bb_, bound_by=by_)
+        ck.rows.append(dict(kernel="fused_step", what=label, **rec))
+        if label == "cifar10_case2":
+            rows["fused_step"] = rec
+        del ops_
+    torch.cuda.empty_cache()
+    log(f"kernels: main-path checks passed {dict(ck.checks)}")
+    return rows
+
+
+def fused_operands(ck: Checker, n, m, d, c, degree) -> dict:
+    from repro_torch.core import field
+    args = (ck.field(n, m, d), ck.field(n, d, c), ck.field(degree + 1),
+            ck.field(n), ck.field(n), ck.field(n), ck.field(n, d, c),
+            ck.field(n, d, c), ck.field(n, d, c), ck.field(n, d, c),
+            ck.field(n, d, c))
+    return {"args": args,
+            "kw": dict(q_eta=int(ck.rng.integers(1, ck.P)),
+                       inv2k1=field.host_inv(1 << 18), k1=18)}
+
+
+def phase_golden(np) -> None:
+    from repro_torch import api
+    res = api.fit("smoke", "copml", "jit", key=0, iters=10, device="cuda")
+    np.testing.assert_array_equal(np.asarray(res.weights, np.float64),
+                                  np.asarray(GOLDEN_W))
+    assert sha(res.state.w_shares.cpu().numpy(), np.int32) == \
+        GOLDEN_SHARES_SHA, "smoke shares sha"
+    assert sha(res.history, np.float32) == GOLDEN_HIST_SHA, "smoke history"
+    for (wl, iters), (s_sha, h_sha) in PINNED.items():
+        r = api.fit(wl, "copml", "jit", key=0, iters=iters, device="cuda")
+        assert sha(r.state.w_shares.cpu().numpy(), np.int32) == s_sha, wl
+        assert sha(r.history, np.float32) == h_sha, wl
+    log("golden: smoke goldens and pinned shas reproduced on cuda")
+
+
+def phase_full(ck: Checker, np) -> tuple:
+    """cifar10_case2 at full width; returns (launch counts, summary)."""
+    torch = ck.torch
+    from repro_torch import api
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import ops, ref
+
+    last = {}
+    launch_fused = ops.fused_step
+
+    def capture(*args, **kw):
+        last["args"], last["kw"] = args, kw
+        return launch_fused(*args, **kw)
+
+    ops.fused_step = capture
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    wl = api.get_workload("cifar10_case2")
+    wl.client_data()                       # dataset build is set-up
+    iters = 5
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = api.fit(wl, "copml", "jit", iters=iters, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    ops.fused_step = launch_fused
+    peak = torch.cuda.max_memory_allocated()
+
+    w = np.asarray(res.weights)
+    assert w.shape == (wl.d,) and np.isfinite(w).all(), w.shape
+    assert res.history.shape == (iters, wl.d), res.history.shape
+    assert counts["fused_step"] == iters, counts
+    for name, cnt in counts.items():
+        assert cnt > 0, f"{name} was not launched on the main path"
+    # the last step's operands, held against the plain version on the CPU
+    args, kw = last["args"], last["kw"]
+    got = fs.fused_step(*args, **kw)
+    want = ref.fused_step(*[a.cpu() for a in args], **kw)
+    for g, w_, what in zip(got, want, ("f", "new_w")):
+        ck.compare("fused_step", g, w_, f"cifar10_case2 last step {what}")
+    assert res.final_accuracy > 0.5, res.final_accuracy
+
+    # a profile of two more steps from the final state: device time by kernel
+    proto = api.protocols.driver(wl, torch.device("cuda"))
+    from repro_torch.core import random as jrandom
+    state = res.state
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(2):
+            state = proto.iteration(jrandom.fold_in(jrandom.PRNGKey(1), t),
+                                    state)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    table = events.table(sort_by="cuda_time_total", row_limit=25)
+    # device-side events only (kernels, memcpys): host ops also report the
+    # device time of the kernels they launched
+    on_device = [e for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    kernel_launches = sum(e.count for e in on_device)
+
+    summary = dict(workload=wl.name, n=wl.n_clients, m=wl.m, d=wl.d,
+                   k=wl.cfg.k, t=wl.cfg.t, iters=iters, wall_s=wall,
+                   setup_s=res.timings["setup_s"],
+                   ms_per_iter=res.timings["iters_s"] / iters * 1e3,
+                   peak_gib=peak / 2 ** 30,
+                   final_accuracy=res.final_accuracy,
+                   accuracy=[float(a) for a in res.accuracy],
+                   launches=counts,
+                   profiled_steps=dict(
+                       wall_ms_per_step=prof_wall_ms / 2,
+                       device_ms_per_step=device_ms / 2,
+                       idle_share=1.0 - device_ms / prof_wall_ms,
+                       device_kernels_per_step=kernel_launches / 2),
+                   profile=table)
+    log(f"full: {wl.name} N={wl.n_clients} m={wl.m} d={wl.d} "
+        f"setup {summary['setup_s']:.3f} s, {summary['ms_per_iter']:.3f} "
+        f"ms/iter, peak {summary['peak_gib']:.2f} GiB, accuracy "
+        f"{res.final_accuracy:.4f}, launches {counts}")
+    log(f"full: profiled steps {summary['profiled_steps']}")
+    return counts, summary
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--quick", action="store_true",
+                        help="build, ragged kernel checks and goldens only")
+    args = parser.parse_args()
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs the port on "
+              "the card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.core.field import P
+    from repro_torch.kernels import build
+
+    report: dict = {"device": torch.cuda.get_device_name(0)}
+    secs = build.build_all()
+    report["build_s"] = secs
+    report["ptxas"] = dict(build.BUILD_LOG)
+    log(f"build: CUDA kernels built in {secs:.1f} s")
+    for name, text in build.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+    ck = Checker(torch, np, P)
+    rows = phase_kernels(ck, args.quick)
+    phase_golden(np)
+    counts = {k: 0 for k in TPU_KERNEL}
+    if not args.quick:
+        counts, summary = phase_full(ck, np)
+        report["full"] = summary
+    report["shapes"] = ck.rows
+
+    kernels = []
+    for name in TPU_KERNEL:
+        r = rows.get(name, {})
+        kernels.append(dict(
+            name=name, route="cuda", source=SOURCE[name],
+            replaces=TPU_KERNEL[name], launches=counts[name],
+            max_abs_err=ck.max_err[name], equal=ck.max_err[name] == 0,
+            checks=ck.checks[name], shape=r.get("shape"), ms=r.get("ms"),
+            plain_ms=r.get("plain_ms"), bound_ms=r.get("bound_ms"),
+            bound_by=r.get("bound_by"), library_ms=None))
+    report["kernels"] = kernels
+    OUT_DIR.mkdir(exist_ok=True)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

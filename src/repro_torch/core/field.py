@@ -1,0 +1,190 @@
+"""Prime-field arithmetic over F_p, p = 2^26 - 5, on torch tensors.
+
+Field elements are stored as int32 in [0, p) and widened to int64 only
+inside a computation: a product of two elements is < 2^52, so `a * b % p`
+in int64 is exact, and the canonical representative it returns is the same
+bits the JAX package's 13-bit-limb int32 arithmetic produces.  Storage
+stays int32 because the setup's share tensors are the port's largest
+allocations (int64 would double them).
+
+`matmul` is the field GEMM.  On a CUDA tensor it is the hand-written
+`modmatmul` kernel (CUDA torch has no int64 matmul, and the JAX package's
+jnp limb form materialises a (4, 4, M, N) float tensor); on a CPU tensor it
+is the plain version in kernels/ref.py.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import random as jrandom
+
+# The paper's prime for 64-bit CIFAR-10 runs: the largest prime below 2^26
+# such that d * (p-1)^2 <= 2^64 - 1 for d = 3072.  2^26 = p + 5.
+P_BITS = 26
+P = (1 << P_BITS) - 5  # 67108859, prime
+_MASK26 = (1 << P_BITS) - 1
+
+FIELD_DTYPE = torch.int32
+
+# Barrett reduction against p: mu = floor(2^32 / p) = 2^6 exactly, so the
+# quotient (t * mu) >> 32 is t >> 26 and r = t - q*p lies in [0, 2p).
+BARRETT_MU = (1 << 32) // P
+_BARRETT_SHIFT = 32 - (BARRETT_MU.bit_length() - 1)   # 26
+
+
+def _csub(t):
+    """Conditional subtract: t in [0, 2p) -> t mod p."""
+    return torch.where(t >= P, t - P, t)
+
+
+def fold26(t):
+    """Reduce t in [0, 2^31) to [0, p) using 2^26 = 5 (mod p)."""
+    return _csub((t >> P_BITS) * 5 + (t & _MASK26))
+
+
+def barrett_reduce(t):
+    """Barrett-reduce t in [0, 2^31) to [0, p)."""
+    return _csub(t - (t >> _BARRETT_SHIFT) * P)
+
+
+def add(a, b):
+    """(a + b) mod p.  a, b in [0, p): the sum fits int32."""
+    return _csub(a + b)
+
+
+def add_(a, b):
+    """a = (a + b) mod p in place, with no temporary the size of a (the
+    setup's share tensors are the port's largest allocations)."""
+    return a.add_(b).remainder_(P)
+
+
+def sub(a, b):
+    """(a - b) mod p."""
+    d = a - b
+    return torch.where(d < 0, d + P, d)
+
+
+def neg(a):
+    """(-a) mod p."""
+    return torch.where(a == 0, a, P - a)
+
+
+def mul(a, b):
+    """(a * b) mod p, exact in int64, stored back as a's dtype."""
+    if isinstance(b, torch.Tensor):
+        b = b.to(torch.int64)
+    return (a.to(torch.int64) * b % P).to(a.dtype)
+
+
+def mul_scalar(a, c: int):
+    """a * c mod p for a public Python int c."""
+    return mul(a, int(c) % P)
+
+
+def pow_const(a, e: int):
+    """a ** e mod p for a static exponent, by square-and-multiply."""
+    e = int(e)
+    assert e >= 0
+    result = torch.ones_like(a)
+    base = a
+    while e:
+        if e & 1:
+            result = mul(result, base)
+        base = mul(base, base)
+        e >>= 1
+    return result
+
+
+def inv(a):
+    """a^{-1} mod p (Fermat).  Undefined for a == 0."""
+    return pow_const(a, P - 2)
+
+
+# ---------------------------------------------------------------------------
+# Host-side exact helpers for public constants (evaluation points are
+# public, so Lagrange matrices are computed with Python ints).
+# ---------------------------------------------------------------------------
+
+def host_inv(a: int) -> int:
+    return pow(int(a) % P, P - 2, P)
+
+
+def host_lagrange_coeffs(xs, targets) -> np.ndarray:
+    """Exact Lagrange basis matrix  L[t, j] = prod_{l != j} (z_t - x_l)/(x_j - x_l)
+    over F_p.  xs: interpolation nodes (len n); targets: evaluation points
+    (len m).  Returns (m, n) int32 in [0, p)."""
+    xs = [int(x) % P for x in xs]
+    ts = [int(t) % P for t in targets]
+    n = len(xs)
+    out = np.zeros((len(ts), n), dtype=np.int64)
+    for ti, z in enumerate(ts):
+        for j in range(n):
+            num, den = 1, 1
+            for l in range(n):
+                if l == j:
+                    continue
+                num = (num * ((z - xs[l]) % P)) % P
+                den = (den * ((xs[j] - xs[l]) % P)) % P
+            out[ti, j] = (num * host_inv(den)) % P
+    return out.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Field GEMM
+# ---------------------------------------------------------------------------
+
+def matmul(a, b):
+    """(a @ b) mod p for int32 field matrices a: (M, K), b: (K, N)."""
+    from ..kernels import ops
+    return ops.modmatmul(a, b)
+
+
+def matvec(a, v):
+    """(a @ v) mod p, a: (M, K) v: (K,)."""
+    return matmul(a, v[:, None])[:, 0]
+
+
+def evaluate_poly(coeffs, x):
+    """Horner evaluation of sum_i coeffs[i] * x^i over F_p.
+
+    coeffs: 1-D field array (host), lowest degree first.  x: any shape."""
+    coeffs = [int(c) for c in coeffs]
+    acc = torch.full_like(x, coeffs[-1])
+    for c in reversed(coeffs[:-1]):
+        acc = add(mul(acc, x), torch.full_like(x, c))
+    return acc
+
+
+def evaluate_poly_dyn(coeffs, x):
+    """Horner with a coefficient tensor on x's device."""
+    acc = coeffs[-1].expand(x.shape)
+    for i in range(coeffs.shape[0] - 2, -1, -1):
+        acc = add(mul(acc, x), coeffs[i].expand(x.shape))
+    return acc
+
+
+def random_field(key, shape, device="cpu"):
+    """Uniform elements of F_p: jax.random.randint(key, shape, 0, p)."""
+    return jrandom.randint(key, shape, 0, P, device=device)
+
+
+# ---------------------------------------------------------------------------
+# numpy uint64 oracles (host-side ground truth for tests)
+# ---------------------------------------------------------------------------
+
+def np_mul(a, b):
+    return ((a.astype(np.uint64) * b.astype(np.uint64)) % np.uint64(P)).astype(np.int64)
+
+
+def np_matmul(a, b):
+    """Exact field matmul with the paper's 64-bit lazy reduction."""
+    a = a.astype(np.uint64)
+    b = b.astype(np.uint64)
+    k = a.shape[1]
+    chunk = 4096
+    out = np.zeros((a.shape[0], b.shape[1]), dtype=np.uint64)
+    for s in range(0, k, chunk):
+        out = (out + (a[:, s:s + chunk] @ b[s:s + chunk, :]) % np.uint64(P)) % np.uint64(P)
+    return out.astype(np.int64)

@@ -1,0 +1,158 @@
+"""JAX's legacy threefry2x32 key stream, emulated with int64 torch tensors.
+
+COPML's outputs are bit-exact only when every share polynomial, LCC mask
+and TruncPr pad is drawn from the same stream the JAX package draws from.
+That package uses `jax.random` with the NON-partitionable threefry layout
+(`jax_threefry_partitionable=False`), so this module reproduces exactly:
+
+  PRNGKey(seed)   [seed >> 32, seed & 0xFFFFFFFF]            (threefry_seed)
+  split(key, n)   hash of iota(2n), reshaped (n, 2)          (_threefry_split_original)
+  fold_in(key, x) hash of [0, x]                             (threefry_fold_in)
+  randint         two 32-bit draws combined mod span         (random._randint)
+
+A key is a (2,) int64 tensor holding two uint32 words.  Keys are derived
+on the host with Python ints (a split is a handful of hashes), so a key
+never forces a device sync; only the bulk draws in `randint` run as tensor
+code on the caller's device.  uint32 wraparound and logical shifts are
+emulated in int64 with `& 0xFFFFFFFF` masks.
+
+The legacy `random_bits` layout hashes the counter vector iota(n) as two
+halves: counter pair q = (q, q + h), h = ceil(n / 2), gives output words q
+and h + q; an odd n pads the second half with one counter 0 whose output is
+dropped.  `randint` walks the pairs in chunks so that a (7, 9019, 3073)
+draw never materialises more than a few chunk-sized int64 temporaries.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_KS_PARITY = 0x1BD11BDA
+# counter pairs hashed per chunk of a bulk draw (int64 temporaries of
+# 8 * _CHUNK bytes each)
+_CHUNK = 1 << 23
+
+
+def _rotl(x, r: int):
+    return ((x << r) & M32) | (x >> (32 - r))
+
+
+def threefry2x32(k0: int, k1: int, x0, x1):
+    """The Threefry-2x32 block (20 rounds) on counter words x0, x1.
+
+    k0, k1: the key's words as Python ints.  x0, x1: Python ints or int64
+    tensors in [0, 2^32).  Returns the two hashed words, same kind.
+    """
+    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
+    x0 = (x0 + ks[0]) & M32
+    x1 = (x1 + ks[1]) & M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & M32
+    return x0, x1
+
+
+def _words(key) -> tuple:
+    key = as_key(key)
+    return int(key[0]), int(key[1])
+
+
+def _key_tensor(w0: int, w1: int) -> torch.Tensor:
+    return torch.tensor([w0, w1], dtype=torch.int64)
+
+
+def as_key(key) -> torch.Tensor:
+    """An int seed, a (2,) tensor, or a JAX key's data as a numpy array ->
+    the (2,) int64 key tensor."""
+    if isinstance(key, int):
+        return PRNGKey(key)
+    if isinstance(key, torch.Tensor):
+        arr = key.detach().cpu().numpy()
+    else:
+        arr = np.asarray(key)
+    arr = arr.astype(np.int64) & M32
+    if arr.shape != (2,):
+        raise ValueError(f"a threefry key has shape (2,), got {arr.shape}")
+    return torch.from_numpy(arr.copy())
+
+
+def PRNGKey(seed: int) -> torch.Tensor:  # noqa: N802 -- jax's name
+    """jax.random.PRNGKey(seed) for an int32 seed (x64 disabled)."""
+    seed = int(seed)
+    if not 0 <= seed < 1 << 31:
+        raise ValueError(f"seed must be in [0, 2^31), got {seed}")
+    return _key_tensor(0, seed)
+
+
+def _hash_counts(k0: int, k1: int, n: int) -> list:
+    """The legacy layout's n output words for counters iota(n), as ints."""
+    h = (n + 1) // 2
+    out = [0] * (2 * h)
+    for q in range(h):
+        c1 = q + h if q + h < n else 0
+        out[q], out[h + q] = threefry2x32(k0, k1, q, c1)
+    return out[:n]
+
+
+def split(key, num: int = 2) -> torch.Tensor:
+    """jax.random.split: (num, 2) keys."""
+    k0, k1 = _words(key)
+    words = _hash_counts(k0, k1, 2 * num)
+    return torch.tensor(words, dtype=torch.int64).reshape(num, 2)
+
+
+def fold_in(key, data: int) -> torch.Tensor:
+    """jax.random.fold_in(key, data) for a uint32 data word."""
+    k0, k1 = _words(key)
+    return _key_tensor(*threefry2x32(k0, k1, 0, int(data) & M32))
+
+
+def randint(key, shape, minval: int, maxval: int, *,
+            device="cpu") -> torch.Tensor:
+    """jax.random.randint(key, shape, minval, maxval, dtype=int32).
+
+    jax draws `higher` and `lower` 32-bit words from split(key) and returns
+    minval + ((higher % span) * mult + lower % span) % span in uint32
+    arithmetic, mult = (2^16 % span)^2 % span.  For every span the protocol
+    uses (p and 2^k2) mult wraps to 0 in uint32, and the `higher` draw then
+    cannot change the result, so it is skipped.
+    """
+    shape = tuple(int(s) for s in shape)
+    minval, maxval = int(minval), int(maxval)
+    if not -(1 << 31) <= minval <= maxval <= (1 << 31) - 1:
+        raise ValueError(f"int32 randint bounds, got [{minval}, {maxval})")
+    span = max(maxval - minval, 1)
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & M32) % span
+    keys = split(key)
+    hi_key, lo_key = _words(keys[0]), _words(keys[1])
+    n = math.prod(shape)
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    h = (n + 1) // 2
+    for qs in range(0, h, _CHUNK):
+        qe = min(h, qs + _CHUNK)
+        c0 = torch.arange(qs, qe, dtype=torch.int64, device=device)
+        c1 = c0 + h
+        if n % 2 and qe == h:
+            c1[-1] = 0                    # the odd count's zero pad
+        lo = threefry2x32(*lo_key, c0, c1)
+        offs = [w % span for w in lo]
+        if mult:
+            hi = threefry2x32(*hi_key, c0, c1)
+            offs = [((((hw % span) * mult) & M32) + o) & M32
+                    for hw, o in zip(hi, offs)]
+            offs = [o % span for o in offs]
+        out[qs:qe] = (offs[0] + minval).to(torch.int32)
+        tail = min(qe, n - h) - qs        # second-half words inside [0, n)
+        if tail > 0:
+            out[h + qs:h + qs + tail] = (offs[1][:tail] + minval).to(
+                torch.int32)
+    return out.reshape(shape)

@@ -1,0 +1,82 @@
+"""Build and load the port's CUDA kernels (plain C interface, ctypes).
+
+Each source `csrc/<name>.cu` compiles with nvcc for sm_90a into its own
+shared library under `kernels/build/`, named by a hash of the source so a
+stale library is never loaded.  All missing libraries are compiled in
+parallel (one nvcc per source) at first use, never at import: the CPU
+tests import every module on machines that have no CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).parent / "build"
+SOURCES = ("modmatmul", "fused_step")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: dict = {}
+BUILD_LOG: dict = {}      # name -> nvcc's output (ptxas register/smem report)
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME)")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build_all() -> float:
+    """Compile every stale source in parallel; returns the seconds taken."""
+    t0 = time.perf_counter()
+    todo = [n for n in SOURCES if not _lib_path(n).exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for name in todo:
+            tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            out, _ = proc.communicate()
+            BUILD_LOG[name] = out
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{out}")
+            else:
+                os.replace(tmp, _lib_path(name))
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, building all sources if any
+    library is missing."""
+    if name not in _LIBS:
+        if not _lib_path(name).exists():
+            build_all()
+        _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+    return _LIBS[name]

@@ -1,0 +1,186 @@
+// One COPML Phase 3+4 step (post model-encode) over F_p, p = 2^26 - 5.
+//
+// Replaces the TPU kernel `fused_step` (src/repro/kernels/fused_step.py).
+// On the TPU one pallas_call walks a sequential (client, row block) grid:
+// f accumulates over row blocks in VMEM, `common` over clients, and the
+// protocol epilogue runs at the last grid step.  Hopper runs blocks in
+// parallel and in no order, so the step is two kernels:
+//
+//   fused_grad_kernel    grid (row blocks, clients).  A block stages its
+//                        (bm, d) slice of X~[n] in shared memory ONCE and
+//                        uses it for both products:
+//                          z = X~_blk @ W~[n]        (one warp per output)
+//                          g = ghat(z)               (Horner, in registers)
+//                          f[n] += X~_blk^T g        (one thread per (j, c))
+//                        The block's partials (< p after a mod) are added
+//                        to a uint64 (N, d, C) accumulator with integer
+//                        atomicAdd: exact and independent of block order.
+//   fused_epilogue_kernel  one thread per model element (j, c):
+//                          f = acc mod p (written out), common =
+//                          sum_n dfull[n] * (f[n] + adv_off[n]); then for
+//                          every holder h: xtg, grad, * q_eta, + radd; the
+//                          masked open c = sum_h rvec[h] * c_sh[h], its low
+//                          k1 bits minus r0sh, * inv(2^k1), w' = wsh - delta.
+//
+// Bound on an H100: reading X~ once (N * m * d * 4 bytes, 554 MB at the
+// paper's cifar10_case2 shape) over 3.35 TB/s, ~0.17 ms; the MACs (2 per
+// X~ element and class) are far below the integer rate.  Every sum is of
+// canonical values < p and products < 2^52, bounded well inside uint64.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr uint64_t kP = 67108859ull;
+constexpr int kGradThreads = 256;
+constexpr int kEpiThreads = 256;
+
+__device__ __forceinline__ uint32_t addp(uint32_t a, uint32_t b) {
+  uint32_t s = a + b;
+  return s >= kP ? s - (uint32_t)kP : s;
+}
+
+__device__ __forceinline__ uint32_t subp(uint32_t a, uint32_t b) {
+  return a >= b ? a - b : a + (uint32_t)kP - b;
+}
+
+__device__ __forceinline__ uint32_t mulp(uint32_t a, uint32_t b) {
+  return (uint32_t)(((uint64_t)a * b) % kP);
+}
+
+__global__ void __launch_bounds__(kGradThreads)
+fused_grad_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ w,
+                  const int32_t* __restrict__ coeffs, int degree,
+                  unsigned long long* __restrict__ facc, int m, int d, int C,
+                  int bm) {
+  extern __shared__ uint32_t smem[];
+  uint32_t* xs = smem;                      // (bm, d) slice of X~[n]
+  uint32_t* gs = smem + (int64_t)bm * d;    // (bm, C) ghat(z)
+
+  const int n = blockIdx.y;
+  const int r0 = blockIdx.x * bm;
+  const int rows = min(bm, m - r0);
+  const int32_t* xb = x + ((int64_t)n * m + r0) * d;
+  const int32_t* wn = w + (int64_t)n * d * C;
+  const int total = rows * d;
+  for (int e = threadIdx.x; e < total; e += kGradThreads) xs[e] = (uint32_t)xb[e];
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  constexpr int kWarps = kGradThreads / 32;
+  for (int o = warp; o < rows * C; o += kWarps) {
+    const int i = o / C, cc = o % C;
+    const uint32_t* xrow = xs + (int64_t)i * d;
+    uint64_t acc = 0;
+    int terms = 0;
+    for (int j = lane; j < d; j += 32) {
+      acc += (uint64_t)xrow[j] * (uint32_t)wn[(int64_t)j * C + cc];
+      if (++terms == 2048) { acc %= kP; terms = 0; }
+    }
+    acc %= kP;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_down_sync(0xffffffffu, (unsigned long long)acc, off);
+    if (lane == 0) {
+      const uint32_t z = (uint32_t)(acc % kP);
+      uint32_t g = (uint32_t)coeffs[degree];
+      for (int t = degree - 1; t >= 0; --t)
+        g = addp(mulp(g, z), (uint32_t)coeffs[t]);
+      gs[i * C + cc] = g;
+    }
+  }
+  __syncthreads();
+
+  unsigned long long* fn = facc + (int64_t)n * d * C;
+  for (int e = threadIdx.x; e < d * C; e += kGradThreads) {
+    const int j = e / C, cc = e % C;
+    uint64_t acc = 0;
+    for (int i = 0; i < rows; ++i)
+      acc += (uint64_t)xs[(int64_t)i * d + j] * gs[i * C + cc];
+    atomicAdd(fn + e, (unsigned long long)(acc % kP));
+  }
+}
+
+__global__ void __launch_bounds__(kEpiThreads)
+fused_epilogue_kernel(const unsigned long long* __restrict__ facc,
+                      const int32_t* __restrict__ adv_off,
+                      const int32_t* __restrict__ dfull,
+                      const int32_t* __restrict__ rvec,
+                      const int32_t* __restrict__ base,
+                      const int32_t* __restrict__ xty,
+                      const int32_t* __restrict__ wsh,
+                      const int32_t* __restrict__ radd,
+                      const int32_t* __restrict__ r0sh,
+                      int32_t* __restrict__ f_out, int32_t* __restrict__ w_out,
+                      int N, int64_t L, uint32_t q_eta, uint32_t inv2k1,
+                      int k1) {
+  const int64_t e = (int64_t)blockIdx.x * kEpiThreads + threadIdx.x;
+  if (e >= L) return;
+
+  uint64_t common = 0;                      // N <= 1024 terms < 2^52
+  for (int n = 0; n < N; ++n) {
+    const uint32_t f = (uint32_t)(facc[n * L + e] % kP);
+    f_out[n * L + e] = (int32_t)f;
+    common += (uint64_t)addp(f, (uint32_t)adv_off[n]) * (uint32_t)dfull[n];
+  }
+  const uint32_t com = (uint32_t)(common % kP);
+
+  uint64_t copen = 0;
+  for (int h = 0; h < N; ++h) {
+    const uint32_t xtg = addp((uint32_t)base[h * L + e], com);
+    const uint32_t scaled = mulp(subp(xtg, (uint32_t)xty[h * L + e]), q_eta);
+    const uint32_t c_sh = addp(scaled, (uint32_t)radd[h * L + e]);
+    copen += (uint64_t)(uint32_t)rvec[h] * c_sh;
+  }
+  const uint32_t c0 = (uint32_t)(copen % kP) & ((1u << k1) - 1u);
+
+  for (int h = 0; h < N; ++h) {
+    const uint32_t xtg = addp((uint32_t)base[h * L + e], com);
+    const uint32_t scaled = mulp(subp(xtg, (uint32_t)xty[h * L + e]), q_eta);
+    const uint32_t a0 = subp(c0, (uint32_t)r0sh[h * L + e]);
+    const uint32_t delta = mulp(subp(scaled, a0), inv2k1);
+    w_out[h * L + e] = (int32_t)subp((uint32_t)wsh[h * L + e], delta);
+  }
+}
+
+}  // namespace
+
+// facc must be a zeroed (N, d, C) uint64 buffer; every other operand is
+// contiguous int32 in [0, p) (see src/repro_torch/kernels/fused_step.py).
+// Returns cudaGetLastError() after both launches (0 = success).
+extern "C" int repro_fused_step(const void* x, const void* w,
+                                const void* coeffs, int degree,
+                                const void* adv_off, const void* dfull,
+                                const void* rvec, const void* base,
+                                const void* xty, const void* wsh,
+                                const void* radd, const void* r0sh,
+                                void* facc, void* f_out, void* w_out, int N,
+                                int m, int d, int C, int bm, int64_t q_eta,
+                                int64_t inv2k1, int k1, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const size_t smem = ((size_t)bm * d + (size_t)bm * C) * sizeof(uint32_t);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((m + bm - 1) / bm, N);
+  fused_grad_kernel<<<grid, kGradThreads, smem, s>>>(
+      static_cast<const int32_t*>(x), static_cast<const int32_t*>(w),
+      static_cast<const int32_t*>(coeffs), degree,
+      static_cast<unsigned long long*>(facc), m, d, C, bm);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t L = (int64_t)d * C;
+  const unsigned epi_blocks = (unsigned)((L + kEpiThreads - 1) / kEpiThreads);
+  fused_epilogue_kernel<<<epi_blocks, kEpiThreads, 0, s>>>(
+      static_cast<const unsigned long long*>(facc),
+      static_cast<const int32_t*>(adv_off), static_cast<const int32_t*>(dfull),
+      static_cast<const int32_t*>(rvec), static_cast<const int32_t*>(base),
+      static_cast<const int32_t*>(xty), static_cast<const int32_t*>(wsh),
+      static_cast<const int32_t*>(radd), static_cast<const int32_t*>(r0sh),
+      static_cast<int32_t*>(f_out), static_cast<int32_t*>(w_out), N, L,
+      (uint32_t)q_eta, (uint32_t)inv2k1, k1);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,95 @@
+"""Launcher for the CUDA fused COPML step (csrc/fused_step.cu).
+
+Replaces the TPU kernel `fused_step` of src/repro/kernels/fused_step.py:
+one whole Phase 3+4 step after the model encode.  The TPU walks its
+(client, row block) grid in order and carries f and the decode fold in
+VMEM; Hopper blocks run in parallel, so the step is a gradient kernel over
+(row block, client), which stages each (bm, d) slice of X~ in shared memory
+once for both z = X~ W~ and X~^T ghat(z) and adds its partials to a uint64
+accumulator with integer atomics (exact, order-independent), followed by an
+epilogue kernel with one thread per model element (decode fold, gradient,
+q_eta scale, TruncPr masked open and rescale, model update).
+
+Bound on an H100: reading X~ once, N * m * d * 4 bytes over 3.35 TB/s
+(554 MB, ~0.17 ms at cifar10_case2); everything else is < 1% of the bytes.
+The slice height bm is the largest that keeps a block's shared memory near
+100 KB, so two blocks share an SM and one block's loads overlap the other's
+arithmetic.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from ..core.field import P
+
+SMEM_TARGET = 100 * 1024       # bytes of X~ slice per block
+SMEM_MAX = 227 * 1024          # an H100 block's dynamic shared memory
+MAX_BM = 64
+
+_FN = None
+
+
+def _fn():
+    global _FN
+    if _FN is None:
+        fn = build.load("fused_step").repro_fused_step
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                       + [ctypes.c_int64] * 2 + [ctypes.c_int]
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def pick_bm(d: int, c: int) -> int:
+    """Rows of X~ per block: as many as fit SMEM_TARGET, at least 1."""
+    bm = max(1, min(MAX_BM, SMEM_TARGET // (4 * (d + c))))
+    if 4 * bm * (d + c) > SMEM_MAX:
+        raise ValueError(f"fused_step: d={d}, C={c} does not fit one row of "
+                         f"X~ in shared memory")
+    return bm
+
+
+def fused_step(x, w, coeffs, adv_off, dfull, rvec, base, xty, wsh, radd,
+               r0sh, *, q_eta: int, inv2k1: int, k1: int):
+    """One fused step on the card; operands as ops.fused_step.  Returns
+    (f, new_w), both (N, d, C) int32."""
+    nb, m, d = x.shape
+    c = w.shape[2]
+    shapes = {"x": (x, (nb, m, d)), "w": (w, (nb, d, c)),
+              "coeffs": (coeffs, (coeffs.shape[0],)),
+              "adv_off": (adv_off, (nb,)), "dfull": (dfull, (nb,)),
+              "rvec": (rvec, (nb,)), "base": (base, (nb, d, c)),
+              "xty": (xty, (nb, d, c)), "wsh": (wsh, (nb, d, c)),
+              "radd": (radd, (nb, d, c)), "r0sh": (r0sh, (nb, d, c))}
+    for name, (t, shape) in shapes.items():
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"fused_step: {name} must be int32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if t.device != x.device or t.device.type != "cuda":
+            raise ValueError(f"fused_step: {name} is on {t.device}; every "
+                             f"operand must be on one cuda device")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_step: {name} must be contiguous")
+    if not (1 <= nb <= 1024 and coeffs.shape[0] >= 1 and 0 < k1 < 26):
+        raise ValueError(f"fused_step: N={nb} (1..1024), degree "
+                         f"{coeffs.shape[0] - 1}, k1={k1}")
+    bm = pick_bm(d, c)
+    facc = torch.zeros((nb, d, c), dtype=torch.int64, device=x.device)
+    f = torch.empty((nb, d, c), dtype=torch.int32, device=x.device)
+    new_w = torch.empty_like(f)
+    err = _fn()(x.data_ptr(), w.data_ptr(), coeffs.data_ptr(),
+                coeffs.shape[0] - 1, adv_off.data_ptr(), dfull.data_ptr(),
+                rvec.data_ptr(), base.data_ptr(), xty.data_ptr(),
+                wsh.data_ptr(), radd.data_ptr(), r0sh.data_ptr(),
+                facc.data_ptr(), f.data_ptr(), new_w.data_ptr(),
+                nb, m, d, c, bm, int(q_eta) % P, int(inv2k1) % P, k1,
+                torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err}")
+    return f, new_w

@@ -1,0 +1,84 @@
+"""Launcher for the CUDA field GEMM (csrc/modmatmul.cu).
+
+Replaces the TPU kernels `modmatmul` and `modmatmul_batched` of
+src/repro/kernels/modmatmul.py (7-bit limbs, 16 exact f32 MXU products,
+one Barrett reduce per block).  This version multiplies field elements
+directly in uint64 on the CUDA cores and reduces mod p every 2048 terms.
+
+Bound on an H100: the main path's GEMMs (Shamir share, LCC encode,
+reconstruct, X^T y, decode base) have small M or small K and huge N, so
+each moves ~4 bytes per input and output element for a few MACs: they are
+memory-bound at 3.35 TB/s.  The kernel reads operands through their strides
+(no transposed or broadcast copy is made) and masks ragged edges instead of
+padding them; its tile shape follows the GEMM's thin side.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+_FN = None
+
+
+def _fn():
+    global _FN
+    if _FN is None:
+        fn = build.load("modmatmul").repro_modmatmul
+        fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int64] * 3
+                       + [ctypes.c_void_p] + [ctypes.c_int64] * 3
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def _check(a, b, batched: bool):
+    nd = 3 if batched else 2
+    for name, t in (("a", a), ("b", b)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"modmatmul: {name} must be int32, got {t.dtype}")
+        if t.dim() != nd:
+            raise ValueError(f"modmatmul: {name} must be {nd}-D, got "
+                             f"{tuple(t.shape)}")
+        if t.device.type != "cuda":
+            raise ValueError(f"modmatmul: {name} is on {t.device}, not cuda")
+    if a.device != b.device:
+        raise ValueError(f"modmatmul: operands on {a.device} and {b.device}")
+    if a.shape[-1] != b.shape[-2] or (batched and a.shape[0] != b.shape[0]):
+        raise ValueError(f"modmatmul: shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    # grid limits: batch on gridDim.z, M tiles on gridDim.y, 32-bit sizes
+    if batched and a.shape[0] > 65535 or a.shape[-2] > 1 << 21 or \
+            max(a.shape[-1], b.shape[-1]) >= 1 << 31:
+        raise ValueError(f"modmatmul: shapes {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)} exceed the kernel's grid")
+
+
+def modmatmul_batched(a, b):
+    """(a[i] @ b[i]) mod p on the card; a (B, M, K), b (B, K, N) int32 in
+    [0, p), any strides (a batch stride may be 0).  Returns (B, M, N)."""
+    _check(a, b, True)
+    bsz, m, k = a.shape
+    n = b.shape[2]
+    out = torch.empty((bsz, m, n), dtype=torch.int32, device=a.device)
+    if out.numel() == 0:
+        return out
+    if k == 0:
+        return out.zero_()
+    err = _fn()(a.data_ptr(), *a.stride(), b.data_ptr(), *b.stride(),
+                out.data_ptr(), bsz, m, n, k,
+                torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"modmatmul kernel launch failed: CUDA error {err}")
+    return out
+
+
+def modmatmul(a, b):
+    """(a @ b) mod p on the card; a (M, K), b (K, N), any strides."""
+    _check(a, b, False)
+    return modmatmul_batched(a[None], b[None])[0]

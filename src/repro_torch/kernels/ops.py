@@ -1,0 +1,67 @@
+"""Kernel dispatch and launch counts.
+
+A tensor on the CPU goes to the plain torch version in kernels/ref.py; a
+CUDA tensor goes to the hand-written kernel, or the launcher raises.  There
+is no fallback from a kernel to its plain version and no tuning knob.
+
+LAUNCHES counts the kernel launches of each op (CPU calls count nothing),
+so a run can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import collections
+
+from . import fused_step as _fs
+from . import modmatmul as _mm
+from . import ref
+
+KERNELS = ("modmatmul", "modmatmul_batched", "fused_step")
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()
+
+
+def launch_counts() -> dict:
+    return {k: LAUNCHES[k] for k in KERNELS}
+
+
+def modmatmul(a, b):
+    """(a @ b) mod p; a (M, K), b (K, N) int32 field tensors."""
+    if a.device.type == "cpu":
+        return ref.modmatmul(a, b)
+    out = _mm.modmatmul(a, b)
+    LAUNCHES["modmatmul"] += 1
+    return out
+
+
+def modmatmul_batched(a, b):
+    """(a[i] @ b[i]) mod p over a leading batch axis; a (B, M, K),
+    b (B, K, N).  On the card a strided view (e.g. a transpose) is read
+    in place."""
+    if a.device.type == "cpu":
+        return ref.modmatmul_batched(a, b)
+    out = _mm.modmatmul_batched(a, b)
+    LAUNCHES["modmatmul_batched"] += 1
+    return out
+
+
+def fused_step(x, w, coeffs, adv_off, dfull, rvec, base, xty, wsh, radd,
+               r0sh, *, q_eta: int, inv2k1: int, k1: int):
+    """One COPML Phase 3+4 step (post model-encode).
+
+    x: (N, m, d) coded slices; w: (N, d, C) coded models; coeffs: (r+1,)
+    ghat coefficients; adv_off / dfull / rvec: (N,) corruption offsets,
+    zero-scattered decode row, and open row; base / xty / wsh / radd /
+    r0sh: (N, d, C) decode base, X^T y shares, model shares, TruncPr
+    [r] + bias, and [r0].  Returns (f, new_w): the per-client coded
+    gradients and the updated model shares."""
+    args = (x, w, coeffs, adv_off, dfull, rvec, base, xty, wsh, radd, r0sh)
+    kw = dict(q_eta=q_eta, inv2k1=inv2k1, k1=k1)
+    if x.device.type == "cpu":
+        return ref.fused_step(*args, **kw)
+    out = _fs.fused_step(*args, **kw)
+    LAUNCHES["fused_step"] += 1
+    return out

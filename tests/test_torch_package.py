@@ -1,0 +1,79 @@
+"""repro_torch packaging contracts: no JAX anywhere in the port, entry
+points that refuse to run without a card unless asked for the CPU, and a
+chip_smoke.py that fails without a card or without the repository."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch import api
+from repro_torch.core import protocol
+from repro_torch.kernels import build, ops
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path) -> set:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", sorted(PORT.rglob("*.py")) +
+                         [REPO / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_package_imports(path):
+    assert not _imported_roots(path) & set(FORBIDDEN), path
+
+
+def test_entry_points_need_a_card_unless_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.fit("smoke", "copml", "jit", iters=1)
+    wl = api.get_workload("smoke")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        protocol.Copml(wl.cfg, wl.m, wl.d)
+    assert protocol.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_sources_and_launch_counts():
+    for name in build.SOURCES:
+        assert (build.CSRC / f"{name}.cu").is_file()
+    assert build.BUILD_DIR.name == "build"
+    assert set(ops.launch_counts()) == set(ops.KERNELS)
+    text = (REPO / "pyproject.toml").read_text()
+    assert "kernels/csrc/*.cu" in text and '"gpu:' in text
+
+
+def _run_chip_smoke(cwd: Path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_chip_smoke_fails_without_a_card():
+    proc = _run_chip_smoke(REPO)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = _run_chip_smoke(tmp_path)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
