@@ -3,19 +3,31 @@
 
 Phases (a failed phase fails the run; no failure is caught):
   1. build    compile the CUDA kernels from src/repro_torch/kernels/csrc
-  2. kernels  hold modmatmul, modmatmul_batched and fused_step against their
-              plain torch versions (run on CPU copies: exact, bit for bit)
-              at ragged shapes and at the main path's shapes; time each
-              kernel and its plain version on the card with CUDA events
+  2. kernels  hold every kernel (modmatmul, modmatmul_batched, fused_step,
+              coded_gradient_batched, coded_gradient_matrix, coded_gradient,
+              poly_eval) against its plain torch version (run on CPU copies:
+              exact, bit for bit) at ragged shapes and at the main path's
+              shapes; time each kernel and its plain version on the card
+              with CUDA events
   3. golden   api.fit on cuda reproduces the smoke goldens (weights, share
               and history sha256) and the pinned mnist10_like /
               linreg_smoke / cifar10_like / smoke_straggler shas of the JAX
-              package's runs
+              package's runs, on the fused schedule and on the siloed one
+              (REPRO_FUSED_STEP=0); smoke_straggler under a fault plan
+              gives the JAX package's shas on both schedules
   4. full     api.fit("cifar10_case2", "copml", "jit", iters=5) on the card
               at the paper's full width (N=50, m=9019, d=3073, K=10, T=7);
               kernel launch counts are reset just before it and read just
               after, and the last step's fused_step operands are re-checked
               against the plain version
+  5. siloed   the same fit on the siloed schedule: coded_gradient_batched
+              once per step, fused_step never, the last step's operands
+              re-checked, weights and history equal to the fused run's;
+              then mnist10_like on the siloed schedule (the matrix kernel)
+  6. faulty   the full fit under a fault plan (a straggler, and from step 3
+              an adversary: exactly R = 49 available), on both schedules:
+              weights and history equal to the fault-free run's, and the
+              fused step's adversary offset non-zero at steps 3 and 4
 
 Output: one {"kernels": [...]} JSON line, the card's name and power limit
 (nvidia-smi), then {"ok": true, "device": {...}} as the last line.
@@ -31,6 +43,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -62,19 +75,40 @@ PINNED = {
         "a475aab02794841823767404680ec5a9ea337a869c1503fc449c2ddc0c2179da",
         "7ece876243ab5f5a5015f937a52c9f3374642f42ff6b4d36009288148a2fbae6"),
 }
+# smoke_straggler, key 0, 6 iterations under FAULT_SCHEDULE: the JAX
+# package's (shares sha, history sha), the same on both of its schedules
+FAULT_SCHEDULE = dict(stragglers={1: (0, 1), 4: (2,)}, dropouts={2: (7,)},
+                      adversaries={3: (8,)})
+FAULTY_SHAS = (
+    "239bb5c60a80c270b9417cf6025b80b18ef8a8dcb900ecda07ab9b289593352d",
+    "d0a119966962c28edbfed2d3e6d6dffc3fc2413e49d189dc8148748d4147b86a")
+FULL_WORKLOAD = "cifar10_case2"
+FULL_ITERS = 5
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 INT32_OPS_PER_S = 67e12        # H100 SXM 32-bit CUDA-core rate (fp32 table)
+
+# the kernels each full-width path launches (every one at least once)
+FUSED_PATH = ("modmatmul", "modmatmul_batched", "fused_step")
+SILOED_PATH = ("modmatmul", "modmatmul_batched", "coded_gradient_batched")
 
 TPU_KERNEL = {
     "modmatmul": "src/repro/kernels/modmatmul.py:70",
     "modmatmul_batched": "src/repro/kernels/modmatmul.py:106",
     "fused_step": "src/repro/kernels/fused_step.py:138",
+    "coded_gradient_batched": "src/repro/kernels/coded_gradient.py:215",
+    "coded_gradient_matrix": "src/repro/kernels/coded_gradient.py:183",
+    "coded_gradient": "src/repro/kernels/coded_gradient.py:120",
+    "poly_eval": "src/repro/kernels/field_poly.py:30",
 }
 SOURCE = {
     "modmatmul": "src/repro_torch/kernels/csrc/modmatmul.cu",
     "modmatmul_batched": "src/repro_torch/kernels/csrc/modmatmul.cu",
     "fused_step": "src/repro_torch/kernels/csrc/fused_step.cu",
+    "coded_gradient_batched": "src/repro_torch/kernels/csrc/coded_gradient.cu",
+    "coded_gradient_matrix": "src/repro_torch/kernels/csrc/coded_gradient.cu",
+    "coded_gradient": "src/repro_torch/kernels/csrc/coded_gradient.cu",
+    "poly_eval": "src/repro_torch/kernels/csrc/field_poly.cu",
 }
 
 
@@ -281,6 +315,34 @@ def phase_kernels(ck: Checker, quick: bool) -> dict:
     return rows
 
 
+def profile_steps(torch, proto, state) -> tuple:
+    """Two more steps of `proto` from `state` under torch.profiler: wall
+    and device ms per step, the device's idle share and its kernels per
+    step, and the table of device time by kernel."""
+    from repro_torch.core import random as jrandom
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for t in range(2):
+            state = proto.iteration(jrandom.fold_in(jrandom.PRNGKey(1), t),
+                                    state)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    table = events.table(sort_by="cuda_time_total", row_limit=25)
+    # device-side events only (kernels, memcpys): host ops also report the
+    # device time of the kernels they launched
+    on_device = [e for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
+    kernel_launches = sum(e.count for e in on_device)
+    return dict(wall_ms_per_step=prof_wall_ms / 2,
+                device_ms_per_step=device_ms / 2,
+                idle_share=1.0 - device_ms / prof_wall_ms,
+                device_kernels_per_step=kernel_launches / 2), table
+
+
 def fused_operands(ck: Checker, n, m, d, c, degree) -> dict:
     from repro_torch.core import field
     args = (ck.field(n, m, d), ck.field(n, d, c), ck.field(degree + 1),
@@ -339,8 +401,8 @@ def phase_full(ck: Checker, np) -> tuple:
     assert w.shape == (wl.d,) and np.isfinite(w).all(), w.shape
     assert res.history.shape == (iters, wl.d), res.history.shape
     assert counts["fused_step"] == iters, counts
-    for name, cnt in counts.items():
-        assert cnt > 0, f"{name} was not launched on the main path"
+    for name in FUSED_PATH:
+        assert counts[name] > 0, f"{name} was not launched on the main path"
     # the last step's operands, held against the plain version on the CPU
     args, kw = last["args"], last["kw"]
     got = fs.fused_step(*args, **kw)
@@ -351,25 +413,7 @@ def phase_full(ck: Checker, np) -> tuple:
 
     # a profile of two more steps from the final state: device time by kernel
     proto = api.protocols.driver(wl, torch.device("cuda"))
-    from repro_torch.core import random as jrandom
-    state = res.state
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for t in range(2):
-            state = proto.iteration(jrandom.fold_in(jrandom.PRNGKey(1), t),
-                                    state)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    table = events.table(sort_by="cuda_time_total", row_limit=25)
-    # device-side events only (kernels, memcpys): host ops also report the
-    # device time of the kernels they launched
-    on_device = [e for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
-    kernel_launches = sum(e.count for e in on_device)
+    profiled, table = profile_steps(torch, proto, res.state)
 
     summary = dict(workload=wl.name, n=wl.n_clients, m=wl.m, d=wl.d,
                    k=wl.cfg.k, t=wl.cfg.t, iters=iters, wall_s=wall,
@@ -378,19 +422,270 @@ def phase_full(ck: Checker, np) -> tuple:
                    peak_gib=peak / 2 ** 30,
                    final_accuracy=res.final_accuracy,
                    accuracy=[float(a) for a in res.accuracy],
-                   launches=counts,
-                   profiled_steps=dict(
-                       wall_ms_per_step=prof_wall_ms / 2,
-                       device_ms_per_step=device_ms / 2,
-                       idle_share=1.0 - device_ms / prof_wall_ms,
-                       device_kernels_per_step=kernel_launches / 2),
-                   profile=table)
+                   launches=counts, profiled_steps=profiled, profile=table)
     log(f"full: {wl.name} N={wl.n_clients} m={wl.m} d={wl.d} "
         f"setup {summary['setup_s']:.3f} s, {summary['ms_per_iter']:.3f} "
         f"ms/iter, peak {summary['peak_gib']:.2f} GiB, accuracy "
         f"{res.final_accuracy:.4f}, launches {counts}")
     log(f"full: profiled steps {summary['profiled_steps']}")
-    return counts, summary
+    return counts, summary, res
+
+def phase_kernels_siloed(ck: Checker, quick: bool) -> dict:
+    """The coded-gradient and poly_eval kernels against their plain
+    versions (CPU copies, exact) at ragged and main-path shapes, timed."""
+    torch = ck.torch
+    from repro_torch.kernels import coded_gradient as cg
+    from repro_torch.kernels import field_poly as fp
+    from repro_torch.kernels import ref
+
+    def check_cg(label, n, m, d, c, degree):
+        x, w, co = ck.field(n, m, d), ck.field(n, d, c), ck.field(degree + 1)
+        want = ref.coded_gradient_matrix(x.cpu(), w.cpu(), co.cpu())
+        ck.compare("coded_gradient_matrix", cg.coded_gradient_matrix(x, w, co),
+                   want, label)
+        if c == 1:
+            ck.compare("coded_gradient_batched",
+                       cg.coded_gradient_batched(x, w[..., 0], co),
+                       want[..., 0], label)
+            ck.compare("coded_gradient",
+                       cg.coded_gradient(x[0], w[0, :, 0], co),
+                       want[0, :, 0], label)
+        return x, w, co
+
+    # -- ragged shapes: m not a multiple of the slice height, d in
+    #    {6, 24, 3073}, C in {1, 10}, degrees 1 and 3
+    for (n, m, d, c, deg) in [(3, 13, 6, 1, 1), (5, 13, 24, 10, 3),
+                              (5, 37, 3073, 1, 3), (2, 130, 3073, 10, 1),
+                              (1, 1, 6, 1, 1), (4, 2049, 24, 1, 3)]:
+        check_cg(f"N={n} m={m} d={d} C={c} degree {deg}", n, m, d, c, deg)
+    for (shape, deg) in [((45,), 1), ((7, 13), 3), ((4099,), 3), ((1,), 1)]:
+        z, co = ck.field(*shape), ck.field(deg + 1)
+        ck.compare("poly_eval", fp.poly_eval(z, co),
+                   ref.poly_eval(z.cpu(), co.cpu()), f"{shape} degree {deg}")
+    log(f"kernels: siloed ragged checks passed {dict(ck.checks)}")
+    if quick:
+        return {}
+
+    # -- main-path shapes: one cifar10_case2 step (N=50, mk=902, d=3073),
+    #    its C=10 twin, mnist10_like's matrix step, one client, and the z of
+    #    one cifar10_case2 step for poly_eval
+    rows = {}
+    for name, label, (n, m, d, c) in [
+            ("coded_gradient_batched", "cifar10_case2", (50, 902, 3073, 1)),
+            ("coded_gradient_matrix", "cifar10_case2 C=10",
+             (50, 902, 3073, 10)),
+            ("coded_gradient_matrix", "mnist10_like", (13, 98, 24, 10)),
+            ("coded_gradient", "one cifar10_case2 client",
+             (1, 902, 3073, 1))]:
+        x, w, co = check_cg(label, n, m, d, c, 1)
+        if name == "coded_gradient_batched":
+            args = (x, w[..., 0], co)
+        elif name == "coded_gradient":
+            args = (x[0], w[0, :, 0], co)
+        else:
+            args = (x, w, co)
+        ms_ = ck.time_ms(lambda: getattr(cg, name)(*args), 20)
+        pl_ = ck.time_ms(lambda: getattr(ref, name)(*args), 2)
+        bb_, by_ = bound(4.0 * (n * m * d + 2 * n * d * c + 2),
+                         4.0 * n * m * d * c)
+        rec = dict(shape=f"N={n} m={m} d={d} C={c}", ms=ms_, plain_ms=pl_,
+                   bound_ms=bb_, bound_by=by_)
+        ck.rows.append(dict(kernel=name, what=label, **rec))
+        rows.setdefault(name, rec)
+        del x, w, co, args
+    torch.cuda.empty_cache()
+    for label, length in {"z of one cifar10_case2 step": 50 * 902,
+                          "ragged": 1_000_003}.items():
+        z, co = ck.field(length), ck.field(2)
+        ck.compare("poly_eval", fp.poly_eval(z, co),
+                   ref.poly_eval(z.cpu(), co.cpu()), label)
+        ms_ = ck.time_ms(lambda: fp.poly_eval(z, co), 50)
+        pl_ = ck.time_ms(lambda: ref.poly_eval(z, co), 5)
+        bb_, by_ = bound(8.0 * length, 2.0 * length)
+        rec = dict(shape=f"L={length}", ms=ms_, plain_ms=pl_, bound_ms=bb_,
+                   bound_by=by_)
+        ck.rows.append(dict(kernel="poly_eval", what=label, **rec))
+        rows.setdefault("poly_eval", rec)
+    log(f"kernels: siloed main-path checks passed {dict(ck.checks)}")
+    return rows
+
+
+def set_schedule(mode: str) -> None:
+    """REPRO_FUSED_STEP for the next fit ("0" siloed, "1" fused)."""
+    os.environ["REPRO_FUSED_STEP"] = mode
+
+
+def phase_golden_siloed(np) -> None:
+    """The goldens and pins on the siloed schedule, and the fault plan's
+    shas on both schedules."""
+    from repro_torch import api
+    set_schedule("0")
+    res = api.fit("smoke", "copml", "jit", key=0, iters=10, device="cuda")
+    np.testing.assert_array_equal(np.asarray(res.weights, np.float64),
+                                  np.asarray(GOLDEN_W))
+    assert sha(res.state.w_shares.cpu().numpy(), np.int32) == \
+        GOLDEN_SHARES_SHA, "siloed smoke shares sha"
+    assert sha(res.history, np.float32) == GOLDEN_HIST_SHA, \
+        "siloed smoke history"
+    for (wl, iters), (s_sha, h_sha) in PINNED.items():
+        r = api.fit(wl, "copml", "jit", key=0, iters=iters, device="cuda")
+        assert sha(r.state.w_shares.cpu().numpy(), np.int32) == s_sha, wl
+        assert sha(r.history, np.float32) == h_sha, wl
+    plan = api.FaultPlan.from_schedule(13, 6, **FAULT_SCHEDULE)
+    for mode in ("0", "1"):
+        set_schedule(mode)
+        r = api.fit("smoke_straggler", "copml", "jit", key=0, iters=6,
+                    faults=plan, device="cuda")
+        got = (sha(r.state.w_shares.cpu().numpy(), np.int32),
+               sha(r.history, np.float32))
+        assert got == FAULTY_SHAS, (mode, got)
+    set_schedule("1")
+    log("golden: siloed goldens, pinned shas and the fault plan's shas "
+        "(both schedules) reproduced on cuda")
+
+
+def fit_full(ck: Checker, mode: str, record=(), faults=None,
+             workload=None) -> tuple:
+    """api.fit(workload, iters=FULL_ITERS) on the card on schedule `mode`,
+    with the launch counts reset just before and read just after; the
+    arguments of every call to the ops entries named in `record` are kept.
+    Returns (result, counts, calls, peak bytes the fit allocated above what
+    was held when it started)."""
+    torch = ck.torch
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    calls = {name: [] for name in record}
+    real = {name: getattr(ops, name) for name in record}
+
+    def spy(name):
+        def call(*args, **kw):
+            calls[name].append((args, kw))
+            return real[name](*args, **kw)
+        return call
+
+    set_schedule(mode)
+    wl = api.get_workload(workload or FULL_WORKLOAD)
+    wl.client_data()                       # dataset build is set-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for name in record:
+        setattr(ops, name, spy(name))
+    try:
+        ops.reset_launches()
+        res = api.fit(wl, "copml", "jit", key=0, iters=FULL_ITERS,
+                      faults=faults, device="cuda")
+        counts = ops.launch_counts()
+    finally:
+        for name in record:
+            setattr(ops, name, real[name])
+        set_schedule("1")
+    return res, counts, calls, torch.cuda.max_memory_allocated() - held
+
+
+def run_summary(res, counts, peak) -> dict:
+    return dict(workload=res.workload, iters=res.iters, wall_s=res.wall_time_s,
+                setup_s=res.timings["setup_s"],
+                ms_per_iter=res.timings["iters_s"] / res.iters * 1e3,
+                peak_gib=peak / 2 ** 30, final_accuracy=res.final_accuracy,
+                accuracy=[float(a) for a in res.accuracy], launches=counts)
+
+
+def same_model(np, got, want, what) -> None:
+    np.testing.assert_array_equal(got.weights, want.weights, err_msg=what)
+    np.testing.assert_array_equal(got.history, want.history, err_msg=what)
+
+
+def phase_siloed(ck: Checker, np, fused) -> tuple:
+    """FULL_WORKLOAD at full width on the siloed schedule, then
+    mnist10_like (the matrix kernel's path); returns (counts per kernel
+    from the path that runs it, summaries)."""
+    from repro_torch import api
+    from repro_torch.kernels import coded_gradient as cg
+    from repro_torch.kernels import ref
+    res, counts, calls, peak = fit_full(
+        ck, "0", record=("coded_gradient_batched",))
+    assert counts["coded_gradient_batched"] == FULL_ITERS, counts
+    assert counts["fused_step"] == 0, counts
+    for name in SILOED_PATH:
+        assert counts[name] > 0, f"{name} was not launched on the siloed path"
+    x, w, co = calls["coded_gradient_batched"][-1][0]
+    ck.compare("coded_gradient_batched", cg.coded_gradient_batched(x, w, co),
+               ref.coded_gradient_batched(x.cpu(), w.cpu(), co.cpu()),
+               f"{res.workload} siloed last step")
+    same_model(np, res, fused, "siloed vs fused full-width run")
+    summary = run_summary(res, counts, peak)
+    set_schedule("0")                      # the siloed run's driver
+    proto = api.protocols.driver(api.get_workload(FULL_WORKLOAD),
+                                 ck.torch.device("cuda"))
+    set_schedule("1")
+    assert proto.fused_mode == "0"
+    summary["profiled_steps"], summary["profile"] = profile_steps(
+        ck.torch, proto, res.state)
+    del calls, x, w, co
+    res.state = None
+    # host time per step varies from fit to fit: the two schedules in turns
+    turns = []
+    for mode in ("1", "0", "0", "1"):
+        r, _, _, _ = fit_full(ck, mode)
+        turns.append(dict(schedule=mode, setup_s=r.timings["setup_s"],
+                          ms_per_iter=r.timings["iters_s"] / r.iters * 1e3))
+        same_model(np, r, fused, f"turn on schedule {mode}")
+    summary["turns"] = turns
+    log(f"siloed: {res.workload} setup {summary['setup_s']:.3f} s, "
+        f"{summary['ms_per_iter']:.3f} ms/iter, peak "
+        f"{summary['peak_gib']:.2f} GiB, accuracy {res.final_accuracy:.4f} "
+        f"(equal to the fused run's), launches {counts}")
+    log(f"siloed: profiled steps {summary['profiled_steps']}")
+    log("siloed: ms/iter in turns " + ", ".join(
+        f"{t['schedule']}: {t['ms_per_iter']:.3f}" for t in turns))
+
+    mres, mcounts, mcalls, mpeak = fit_full(
+        ck, "0", record=("coded_gradient_matrix",), workload="mnist10_like")
+    assert mcounts["coded_gradient_matrix"] == FULL_ITERS, mcounts
+    x, w, co = mcalls["coded_gradient_matrix"][-1][0]
+    ck.compare("coded_gradient_matrix", cg.coded_gradient_matrix(x, w, co),
+               ref.coded_gradient_matrix(x.cpu(), w.cpu(), co.cpu()),
+               "mnist10_like siloed last step")
+    msummary = run_summary(mres, mcounts, mpeak)
+    log(f"siloed: mnist10_like {msummary['ms_per_iter']:.3f} ms/iter, "
+        f"accuracy {mres.final_accuracy:.4f}, launches {mcounts}")
+    path_counts = dict(counts)
+    path_counts["coded_gradient_matrix"] = mcounts["coded_gradient_matrix"]
+    return path_counts, {res.workload: summary, "mnist10_like": msummary}
+
+
+def phase_faulty(ck: Checker, np, fused) -> dict:
+    """cifar10_case2 at full width under a fault plan on both schedules:
+    a straggler at step 1 and an adversary from step 3, which leaves
+    exactly R = 49 of the 50 clients available."""
+    from repro_torch import api
+    wl = api.get_workload(FULL_WORKLOAD)
+    plan = api.FaultPlan.from_schedule(wl.n_clients, FULL_ITERS,
+                                       stragglers={1: (0,)},
+                                       adversaries={3: (7,)})
+    headroom = plan.validate(api.fault_threshold(wl))
+    log(f"faulty: {plan.describe()}, headroom per step {headroom.tolist()}")
+    out = {}
+    for mode in ("1", "0"):
+        res, counts, calls, peak = fit_full(
+            ck, mode, record=("fused_step",), faults=plan)
+        same_model(np, res, fused, f"faulty (schedule {mode}) vs fault-free")
+        if mode == "1":
+            offsets = [args[3].cpu() for args, _ in calls["fused_step"]]
+            assert len(offsets) == FULL_ITERS
+            for step, off in enumerate(offsets):
+                hit = (off != 0).nonzero().flatten().tolist()
+                assert hit == ([7] if step >= 3 else []), (step, hit)
+        else:
+            assert counts["coded_gradient_batched"] == FULL_ITERS, counts
+        res.state = None
+        del calls
+        out[f"schedule {mode}"] = run_summary(res, counts, peak)
+        log(f"faulty: schedule {mode}: weights and history equal the "
+            f"fault-free run's; {out[f'schedule {mode}']['ms_per_iter']:.3f} "
+            f"ms/iter, launches {counts}")
+    return out
 
 
 def main() -> int:
@@ -418,13 +713,31 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
+    set_schedule("1")
     ck = Checker(torch, np, P)
     rows = phase_kernels(ck, args.quick)
+    rows.update(phase_kernels_siloed(ck, args.quick))
     phase_golden(np)
+    phase_golden_siloed(np)
+    # launches: each kernel's count from the full-width path that runs it
+    # (coded_gradient and poly_eval are on no path of the protocol)
     counts = {k: 0 for k in TPU_KERNEL}
+    path = {k: None for k in TPU_KERNEL}
     if not args.quick:
-        counts, summary = phase_full(ck, np)
+        fused_counts, summary, fused = phase_full(ck, np)
+        fused.state = None                 # frees its device memory
         report["full"] = summary
+        siloed_counts, report["siloed"] = phase_siloed(ck, np, fused)
+        report["faulty"] = phase_faulty(ck, np, fused)
+        for name in FUSED_PATH:
+            counts[name] = fused_counts[name]
+            path[name] = "fused cifar10_case2"
+        counts["coded_gradient_batched"] = \
+            siloed_counts["coded_gradient_batched"]
+        path["coded_gradient_batched"] = "siloed cifar10_case2"
+        counts["coded_gradient_matrix"] = \
+            siloed_counts["coded_gradient_matrix"]
+        path["coded_gradient_matrix"] = "siloed mnist10_like"
     report["shapes"] = ck.rows
 
     kernels = []
@@ -433,6 +746,7 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE[name],
             replaces=TPU_KERNEL[name], launches=counts[name],
+            path=path[name],
             max_abs_err=ck.max_err[name], equal=ck.max_err[name] == 0,
             checks=ck.checks[name], shape=r.get("shape"), ms=r.get("ms"),
             plain_ms=r.get("plain_ms"), bound_ms=r.get("bound_ms"),

@@ -54,9 +54,12 @@ class TrainResult:
     timings        setup_s and iters_s: wall seconds of the setup and of the
                    iteration loop (each ending in a device synchronise)
     state          the final CopmlState (torch tensors on `device`)
+    availability   the run's FaultPlan availability, bool (iters, N) (True =
+                   the client contributed honestly and on time that step),
+                   or None for a fault-free run
 
-    The JAX package's cost, availability and measured_comm fields arrive
-    with the slices that port cost_model, fault plans and the proc engine.
+    The JAX package's cost and measured_comm fields arrive with the slices
+    that port cost_model and the proc engine.
     """
     workload: str
     protocol: str
@@ -71,6 +74,7 @@ class TrainResult:
     device: str = "cpu"
     timings: dict | None = None
     state: object = None
+    availability: np.ndarray | None = None
 
     @property
     def triple(self) -> tuple:
@@ -87,4 +91,8 @@ class TrainResult:
             worst = np.nanmin(self.per_class_accuracy)
             parts.append(f"(worst class {worst:.3f} "
                          f"of {len(self.per_class_accuracy)})")
+        if self.availability is not None:
+            n = self.availability.shape[1]
+            parts.append(f"churn: min {int(self.availability.sum(1).min())}"
+                         f"/{n} clients available")
         return "  ".join(parts)

@@ -31,6 +31,12 @@ def mul_public(xs: Share, c: int) -> Share:
     return field.mul_scalar(xs, c)
 
 
+def add_public(xs: Share, c: int) -> Share:
+    """Add a public constant: by convention added to every share (the
+    constant is embedded as the degree-0 coefficient on all shares)."""
+    return field.add(xs, int(c) % field.P)
+
+
 def _local_product(xs, ys, matmul: bool):
     """Per-client product; matmul=True is one batched field GEMM over the
     client axis (xs may be a strided view, e.g. a transpose)."""

@@ -1,9 +1,17 @@
 """COPML: the training protocol (paper Algorithm 1) over N virtual clients.
 
 One process simulates all N clients; every share tensor carries the client
-axis first.  This is the fused-step schedule: per iteration the model is
-Lagrange-encoded from its shares, then Phases 3+4 (coded gradient, decode,
-secure truncated update) run as one `ops.fused_step` call.
+axis first.  Per iteration the model is Lagrange-encoded from its shares,
+then Phases 3+4 (coded gradient, decode, secure truncated update) run on
+one of two schedules, chosen by REPRO_FUSED_STEP when a Copml is built:
+
+  "1" (default), "kernel"  fused: one `ops.fused_step` call;
+  "0"                      siloed: `local_gradient` (the coded-gradient
+                           kernels) then `decode_and_update` (share, decode,
+                           TruncPr as separate field ops).
+
+Both give the same bits.  A fault plan's per-step decode subsets and
+adversaries (api/faults.FaultPlan) run on either.
 
 Fixed-point scale plumbing (paper Appendix A):
 
@@ -22,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from typing import Sequence
 
@@ -77,8 +86,21 @@ class CopmlConfig:
 
 
 # Corruption offset added to an adversarial client's coded gradient (the
-# fused step's adv_off operand).
+# fused step's adv_off operand); it must exceed TruncPr's 2^k1 rescale to
+# stay visible in the model.
 ADV_OFFSET = 1 << 20
+
+FUSED_MODES = ("0", "1", "kernel")
+
+
+def fused_mode_from_env() -> str:
+    """REPRO_FUSED_STEP: "0" siloed schedule; "1" (default) or "kernel" the
+    fused step (on CUDA both are the fused_step kernel)."""
+    mode = os.environ.get("REPRO_FUSED_STEP", "1")
+    if mode not in FUSED_MODES:
+        raise ValueError(f"REPRO_FUSED_STEP={mode!r}: expected one of "
+                         f"{FUSED_MODES}")
+    return mode
 
 
 def case1_params(n: int, r: int = 1) -> tuple:
@@ -170,6 +192,7 @@ class Copml:
         self.q_eta, self.e, self.k1, self.k2 = self.obj.update_constants(
             cfg, m)
         self.poly_coeffs = self.obj.field_coeffs(cfg)       # host int32
+        self.fused_mode = fused_mode_from_env()
         self._mul = mpc.mul_bh08 if cfg.mpc_mul == "bh08" else mpc.mul_bgw
         dev = self.device
         self._coeffs = torch.from_numpy(self.poly_coeffs).to(dev)
@@ -178,8 +201,8 @@ class Copml:
         rvec = np.zeros(n, np.int32)
         rvec[: t + 1] = shamir.recon_weights(self.lambdas, tuple(range(t + 1)))
         self._rvec = torch.from_numpy(rvec).to(dev)
-        self._adv_off = torch.zeros(n, dtype=torch.int32, device=dev)
-        self._dfull: dict = {}
+        self._zeros_n = torch.zeros(n, dtype=torch.int32, device=dev)
+        self._decode_rows: dict = {}
 
     # ------------------------------------------------------------------ setup
 
@@ -261,6 +284,50 @@ class Copml:
         enc = ops.modmatmul_batched(enc_mat, stacked)    # (N_h, N_o, dw)
         return shamir.reconstruct(enc, cfg.t, self.lambdas, subset="all")
 
+    def local_gradient(self, coded_x: Coded, coded_w: Coded) -> Coded:
+        """Phase 3 (LOCAL): f(X~_i, w~_i) = X~_i^T ghat(X~_i w~_i) for all N
+        clients in one kernel launch; a matrix objective's coded model
+        reshapes to (N, d, C) and takes the class-batched kernel."""
+        if not self.out_shape:
+            return ops.coded_gradient_batched(coded_x, coded_w, self._coeffs)
+        w_mat = coded_w.reshape(coded_w.shape[0], self.d, self.obj.n_outputs)
+        return ops.coded_gradient_matrix(coded_x, w_mat, self._coeffs)
+
+    def decode_and_update(self, key, state: CopmlState, f_values: Coded,
+                          subset: Sequence[int] | None = None, *,
+                          subset_idx=None, dvec=None) -> CopmlState:
+        """Phase 4: share f, decode on shares, secure model update.
+
+        The decode subset is a static `subset` tuple, or `subset_idx` (R,)
+        int64 indices on the device with the matching `dvec` (R,) decode
+        row (a fault plan's per-step form)."""
+        cfg, n = self.cfg, self.cfg.n_clients
+        kf, kt = jrandom.split(key)
+        if subset_idx is None:
+            subset_idx, dvec, _ = self._decode_row(subset)
+        else:
+            assert dvec is not None, "subset_idx needs its decode row dvec"
+
+        # EXCHANGE: each client shares its local result; the owner<->holder
+        # swap is a view of the (holder, owner) share tensor
+        f_shares = shamir.share_batch(kf, f_values, cfg.t, n,
+                                      self.lambdas)  # (N_owner, N_holder, ..)
+        per_holder = f_shares.transpose(0, 1).reshape(n, n, self.dw)
+        # each holder decodes from its R rows: the sum over the K decode
+        # rows folded into one (R,) row, one batched GEMM for all holders
+        evals = per_holder.index_select(1, subset_idx)      # (N_h, R, dw)
+        r = evals.shape[1]
+        xtg = ops.modmatmul_batched(dvec[None, None].expand(n, 1, r), evals)
+        xtg_shares = xtg.reshape((n,) + self.w_shape)
+
+        # LOCAL: gradient shares; then secure update with TruncPr
+        grad_shares = field.sub(xtg_shares, state.xty_shares)
+        scaled = field.mul_scalar(grad_shares, self.q_eta)
+        delta_shares = truncation.trunc_pr(
+            kt, scaled, self.k1, self.k2, cfg.t, self.lambdas)  # scale lw
+        new_w = field.sub(state.w_shares, delta_shares)
+        return dataclasses.replace(state, w_shares=new_w, step=state.step + 1)
+
     def _decode_vec(self, subset) -> Public:
         """Host-side (R,) decode row: sum_k D[k, :] over the K decode-matrix
         rows, mod p."""
@@ -269,20 +336,23 @@ class Copml:
             sub_alphas, self.betas[: self.cfg.k]).astype(np.int64)
         return (dmat.sum(axis=0) % field.P).astype(np.int32)
 
-    def _dfull_for(self, subset):
-        """(N,) decode row with the subset's weights scattered in, cached."""
-        cfg, n = self.cfg, self.cfg.n_clients
-        rthr = cfg.recovery_threshold
+    def _decode_row(self, subset):
+        """(subset_idx, dvec, dfull) device tensors of a static subset (None
+        = the first R clients), cached per subset: the R indices, their
+        decode row, and the row zero-scattered over all N clients."""
+        rthr = self.cfg.recovery_threshold
         subset = tuple(range(rthr)) if subset is None else \
             tuple(subset)[:rthr]
-        if subset not in self._dfull:
-            dfull = np.zeros(n, np.int32)
-            dfull[list(subset)] = self._decode_vec(subset)
-            self._dfull[subset] = torch.from_numpy(dfull).to(self.device)
-        return self._dfull[subset]
+        if subset not in self._decode_rows:
+            idx = torch.tensor(subset, dtype=torch.int64, device=self.device)
+            dvec = torch.from_numpy(self._decode_vec(subset)).to(self.device)
+            self._decode_rows[subset] = (
+                idx, dvec, self._zeros_n.index_put((idx,), dvec))
+        return self._decode_rows[subset]
 
     def _fused_iteration(self, key, state: CopmlState, coded_w: Coded,
-                         subset=None) -> CopmlState:
+                         subset=None, *, subset_idx=None, dvec=None,
+                         adv=None) -> CopmlState:
         """Phases 3+4 as ONE kernels/ops.fused_step call.
 
         `mix` is shamir.share(kf, ZEROS), the value-independent masking term
@@ -290,10 +360,18 @@ class Copml:
         base[h] = dfull @ mix[h] (formed here) plus the holder-independent
         dfull @ f_adj (formed in the kernel).  TruncPr's r/[r]/[r0] come
         from trunc_pr_randomness with trunc_pr_core's split arity and draw
-        shapes."""
+        shapes.  The decode subset enters as the zero-scattered (N,) row
+        `dfull`, from a static subset or from (subset_idx, dvec); `adv`
+        (N,) bool adds ADV_OFFSET to those clients' gradients."""
         cfg, n, dev = self.cfg, self.cfg.n_clients, self.device
         kf, kt = jrandom.split(key)
-        dfull = self._dfull_for(subset)
+        if subset_idx is None:
+            dfull = self._decode_row(subset)[2]
+        else:
+            assert dvec is not None, "subset_idx needs its decode row dvec"
+            dfull = self._zeros_n.index_put((subset_idx,), dvec)
+        adv_off = self._zeros_n if adv is None else \
+            torch.where(adv, ADV_OFFSET, self._zeros_n)
 
         mix = shamir.share(
             kf, torch.zeros((n,) + self.w_shape, dtype=field.FIELD_DTYPE,
@@ -308,7 +386,7 @@ class Copml:
 
         mat = (n, self.d, self.obj.n_outputs)
         _, new_w = ops.fused_step(
-            state.coded_x, coded_w.reshape(mat), self._coeffs, self._adv_off,
+            state.coded_x, coded_w.reshape(mat), self._coeffs, adv_off,
             dfull, self._rvec, base.reshape(mat),
             state.xty_shares.reshape(mat), state.w_shares.reshape(mat),
             radd.reshape(mat), r0_sh.reshape(mat),
@@ -318,10 +396,52 @@ class Copml:
             step=state.step + 1)
 
     def iteration(self, key, state: CopmlState,
-                  subset: Sequence[int] | None = None) -> CopmlState:
+                  subset: Sequence[int] | None = None, *,
+                  subset_idx=None, dvec=None, adv=None) -> CopmlState:
         k1_, k2_ = jrandom.split(key)
         coded_w = self.encode_model(k1_, state.w_shares)
-        return self._fused_iteration(k2_, state, coded_w, subset)
+        if self.fused_mode != "0":
+            return self._fused_iteration(k2_, state, coded_w, subset,
+                                         subset_idx=subset_idx, dvec=dvec,
+                                         adv=adv)
+        f_values = self.local_gradient(state.coded_x, coded_w)
+        if adv is not None:
+            # adversarial clients contribute a CORRUPTED coded gradient; the
+            # fault plan keeps them out of subset_idx
+            adv_b = adv.reshape((adv.shape[0],) + (1,) * len(self.w_shape))
+            f_values = torch.where(adv_b, field.add(f_values, ADV_OFFSET),
+                                   f_values)
+        return self.decode_and_update(k2_, state, f_values, subset,
+                                      subset_idx=subset_idx, dvec=dvec)
+
+    # ------------------------------------------------------ fault schedules
+
+    def plan_constants(self, step_subsets) -> tuple:
+        """A fault plan's per-step decode subsets -> (iters, R) int64 index
+        and int32 decode-row tensors on the device (one exact Lagrange row
+        per distinct subset)."""
+        return shamir.step_subset_arrays(
+            step_subsets, self.cfg.recovery_threshold, self._decode_vec,
+            self.device)
+
+    def _fault_xs(self, step_subsets, adversaries, iters: int, subset=None):
+        """(idx, dvec, adv-or-None) per-step inputs of a faulty run, or
+        None for a fault-free one."""
+        if step_subsets is None:
+            assert adversaries is None, "adversaries need step_subsets"
+            return None
+        if subset is not None:
+            raise ValueError("subset and step_subsets are mutually "
+                             "exclusive: the plan chooses each step's "
+                             "decode subset")
+        assert len(step_subsets) == iters, (len(step_subsets), iters)
+        idx, dvs = self.plan_constants(step_subsets)
+        adv = None
+        if adversaries is not None and np.asarray(adversaries).any():
+            adv = np.array(adversaries, bool)        # a writable copy
+            assert adv.shape == (iters, self.cfg.n_clients), adv.shape
+            adv = torch.from_numpy(adv).to(self.device)
+        return idx, dvs, adv
 
     # ------------------------------------------------------------------ train
 
@@ -332,22 +452,33 @@ class Copml:
 
     def train(self, key, client_xs, client_ys, iters: int,
               subset: Sequence[int] | None = None,
-              history: bool = False, timings: dict | None = None) -> tuple:
+              history: bool = False, timings: dict | None = None,
+              step_subsets=None, adversaries=None) -> tuple:
         """Setup + `iters` GD iterations with the JAX package's key schedule
         (split(key) -> (ks, ki); step t uses fold_in(ki, t)).
 
-        `timings`, when given, receives setup_s and iters_s: wall seconds
-        of the setup and of the iteration loop, each ending in a device
-        synchronise.  Returns (state, w, history (iters,) + w_shape or
-        None)."""
+        step_subsets / adversaries carry a fault plan: per-step decode
+        subsets and an (iters, N) corruption mask, compiled once into
+        device tensors before the setup.  `timings`, when given, receives
+        setup_s and iters_s: wall seconds of the setup and of the iteration
+        loop, each ending in a device synchronise.  Returns (state, w,
+        history (iters,) + w_shape or None)."""
+        subset = None if subset is None else tuple(subset)
+        iters = int(iters)
+        faults = self._fault_xs(step_subsets, adversaries, iters, subset)
         t0 = self._sync()
         ks, ki = jrandom.split(jrandom.as_key(key))
         state = self.setup(ks, client_xs, client_ys)
         t1 = self._sync()
-        subset = None if subset is None else tuple(subset)
         hist = []
-        for t in range(int(iters)):
-            state = self.iteration(jrandom.fold_in(ki, t), state, subset)
+        for t in range(iters):
+            kw = {}
+            if faults is not None:
+                idx, dvs, adv = faults
+                kw = dict(subset_idx=idx[t], dvec=dvs[t],
+                          adv=None if adv is None else adv[t])
+            state = self.iteration(jrandom.fold_in(ki, t), state, subset,
+                                   **kw)
             if history:
                 hist.append(self.open_model(state))
         t2 = self._sync()

@@ -104,6 +104,41 @@ def reconstruct(shares: Share, t: int, points: Sequence[int] | None = None,
     return out.reshape(shares.shape[1:])
 
 
+def step_subset_arrays(step_subsets, r: int, weight_fn,
+                       device="cpu") -> tuple:
+    """Per-step subsets -> (iters, r) int64 gather indices and (iters, r)
+    int32 weight rows on `device`, for the dynamic decode paths.
+
+    weight_fn(subset_tuple) -> (r,) int32 public decode/reconstruction row;
+    called once per DISTINCT subset (host work is O(#distinct), not
+    O(iters))."""
+    cache: dict = {}
+    idx = np.zeros((len(step_subsets), r), np.int64)
+    wts = np.zeros((len(step_subsets), r), np.int32)
+    for s, sub in enumerate(step_subsets):
+        sub = tuple(int(i) for i in sub)
+        assert len(sub) >= r, (
+            f"step {s} subset has {len(sub)} < {r} clients")
+        sub = sub[:r]
+        if sub not in cache:
+            cache[sub] = weight_fn(sub)
+        idx[s] = sub
+        wts[s] = cache[sub]
+    return (torch.from_numpy(idx).to(device),
+            torch.from_numpy(wts).to(device))
+
+
+def reconstruct_dyn(shares: Share, idx, weights) -> Opened:
+    """Reconstruct from the clients `idx` (an (r,) index tensor on shares'
+    device) with their precomputed `recon_weights` row (r,): the field math
+    of `reconstruct` with a static subset, for subsets chosen per step."""
+    r = idx.shape[0]
+    sub = shares.index_select(0, idx)
+    w = torch.as_tensor(weights, dtype=torch.int32, device=shares.device)
+    out = field.matmul(w.reshape(1, r), sub.reshape(r, -1))
+    return out.reshape(shares.shape[1:])
+
+
 def share_batch(key, secrets, t: int, n: int,
                 points: Sequence[int] | None = None) -> Share:
     """Share J independent secrets (leading axis = owners) in ONE GEMM:

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels (plain C interface, ctypes).
 
 Each source `csrc/<name>.cu` compiles with nvcc for sm_90a into its own
-shared library under `kernels/build/`, named by a hash of the source so a
-stale library is never loaded.  All missing libraries are compiled in
-parallel (one nvcc per source) at first use, never at import: the CPU
-tests import every module on machines that have no CUDA toolkit.
+shared library under `kernels/build/`, named by a hash of the source and of
+every shared header `csrc/*.cuh`, so a stale library is never loaded.  All
+missing libraries are compiled in parallel (one nvcc per source) at first
+use, never at import: the CPU tests import every module on machines that
+have no CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-SOURCES = ("modmatmul", "fused_step")
+SOURCES = ("modmatmul", "fused_step", "coded_gradient", "field_poly")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -40,8 +41,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

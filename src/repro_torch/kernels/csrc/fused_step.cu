@@ -6,15 +6,11 @@
 // protocol epilogue runs at the last grid step.  Hopper runs blocks in
 // parallel and in no order, so the step is two kernels:
 //
-//   fused_grad_kernel    grid (row blocks, clients).  A block stages its
-//                        (bm, d) slice of X~[n] in shared memory ONCE and
-//                        uses it for both products:
-//                          z = X~_blk @ W~[n]        (one warp per output)
-//                          g = ghat(z)               (Horner, in registers)
-//                          f[n] += X~_blk^T g        (one thread per (j, c))
-//                        The block's partials (< p after a mod) are added
-//                        to a uint64 (N, d, C) accumulator with integer
-//                        atomicAdd: exact and independent of block order.
+//   coded_grad_kernel    (coded_gradient.cuh) grid (row blocks, clients).
+//                        A block stages its (bm, d) slice of X~[n] in
+//                        shared memory ONCE and uses it for both z = X~ W~
+//                        and f[n] += X~^T ghat(z); reduced partials go to a
+//                        uint64 (N, d, C) accumulator by integer atomicAdd.
 //   fused_epilogue_kernel  one thread per model element (j, c):
 //                          f = acc mod p (written out), common =
 //                          sum_n dfull[n] * (f[n] + adv_off[n]); then for
@@ -27,81 +23,11 @@
 // X~ element and class) are far below the integer rate.  Every sum is of
 // canonical values < p and products < 2^52, bounded well inside uint64.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "coded_gradient.cuh"
 
 namespace {
 
-constexpr uint64_t kP = 67108859ull;
-constexpr int kGradThreads = 256;
 constexpr int kEpiThreads = 256;
-
-__device__ __forceinline__ uint32_t addp(uint32_t a, uint32_t b) {
-  uint32_t s = a + b;
-  return s >= kP ? s - (uint32_t)kP : s;
-}
-
-__device__ __forceinline__ uint32_t subp(uint32_t a, uint32_t b) {
-  return a >= b ? a - b : a + (uint32_t)kP - b;
-}
-
-__device__ __forceinline__ uint32_t mulp(uint32_t a, uint32_t b) {
-  return (uint32_t)(((uint64_t)a * b) % kP);
-}
-
-__global__ void __launch_bounds__(kGradThreads)
-fused_grad_kernel(const int32_t* __restrict__ x, const int32_t* __restrict__ w,
-                  const int32_t* __restrict__ coeffs, int degree,
-                  unsigned long long* __restrict__ facc, int m, int d, int C,
-                  int bm) {
-  extern __shared__ uint32_t smem[];
-  uint32_t* xs = smem;                      // (bm, d) slice of X~[n]
-  uint32_t* gs = smem + (int64_t)bm * d;    // (bm, C) ghat(z)
-
-  const int n = blockIdx.y;
-  const int r0 = blockIdx.x * bm;
-  const int rows = min(bm, m - r0);
-  const int32_t* xb = x + ((int64_t)n * m + r0) * d;
-  const int32_t* wn = w + (int64_t)n * d * C;
-  const int total = rows * d;
-  for (int e = threadIdx.x; e < total; e += kGradThreads) xs[e] = (uint32_t)xb[e];
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  constexpr int kWarps = kGradThreads / 32;
-  for (int o = warp; o < rows * C; o += kWarps) {
-    const int i = o / C, cc = o % C;
-    const uint32_t* xrow = xs + (int64_t)i * d;
-    uint64_t acc = 0;
-    int terms = 0;
-    for (int j = lane; j < d; j += 32) {
-      acc += (uint64_t)xrow[j] * (uint32_t)wn[(int64_t)j * C + cc];
-      if (++terms == 2048) { acc %= kP; terms = 0; }
-    }
-    acc %= kP;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_down_sync(0xffffffffu, (unsigned long long)acc, off);
-    if (lane == 0) {
-      const uint32_t z = (uint32_t)(acc % kP);
-      uint32_t g = (uint32_t)coeffs[degree];
-      for (int t = degree - 1; t >= 0; --t)
-        g = addp(mulp(g, z), (uint32_t)coeffs[t]);
-      gs[i * C + cc] = g;
-    }
-  }
-  __syncthreads();
-
-  unsigned long long* fn = facc + (int64_t)n * d * C;
-  for (int e = threadIdx.x; e < d * C; e += kGradThreads) {
-    const int j = e / C, cc = e % C;
-    uint64_t acc = 0;
-    for (int i = 0; i < rows; ++i)
-      acc += (uint64_t)xs[(int64_t)i * d + j] * gs[i * C + cc];
-    atomicAdd(fn + e, (unsigned long long)(acc % kP));
-  }
-}
 
 __global__ void __launch_bounds__(kEpiThreads)
 fused_epilogue_kernel(const unsigned long long* __restrict__ facc,
@@ -160,17 +86,10 @@ extern "C" int repro_fused_step(const void* x, const void* w,
                                 int m, int d, int C, int bm, int64_t q_eta,
                                 int64_t inv2k1, int k1, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  const size_t smem = ((size_t)bm * d + (size_t)bm * C) * sizeof(uint32_t);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((m + bm - 1) / bm, N);
-  fused_grad_kernel<<<grid, kGradThreads, smem, s>>>(
+  cudaError_t err = launch_coded_grad(
       static_cast<const int32_t*>(x), static_cast<const int32_t*>(w),
       static_cast<const int32_t*>(coeffs), degree,
-      static_cast<unsigned long long*>(facc), m, d, C, bm);
-  err = cudaGetLastError();
+      static_cast<unsigned long long*>(facc), N, m, d, C, bm, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t L = (int64_t)d * C;
   const unsigned epi_blocks = (unsigned)((L + kEpiThreads - 1) / kEpiThreads);

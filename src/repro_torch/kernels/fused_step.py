@@ -4,9 +4,10 @@ Replaces the TPU kernel `fused_step` of src/repro/kernels/fused_step.py:
 one whole Phase 3+4 step after the model encode.  The TPU walks its
 (client, row block) grid in order and carries f and the decode fold in
 VMEM; Hopper blocks run in parallel, so the step is a gradient kernel over
-(row block, client), which stages each (bm, d) slice of X~ in shared memory
-once for both z = X~ W~ and X~^T ghat(z) and adds its partials to a uint64
-accumulator with integer atomics (exact, order-independent), followed by an
+(row block, client) -- the coded-gradient kernel of csrc/coded_gradient.cuh,
+which stages each (bm, d) slice of X~ in shared memory once for both
+z = X~ W~ and X~^T ghat(z) and adds its partials to a uint64 accumulator
+with integer atomics (exact, order-independent) -- followed by an
 epilogue kernel with one thread per model element (decode fold, gradient,
 q_eta scale, TruncPr masked open and rescale, model update).
 
@@ -24,11 +25,8 @@ import ctypes
 import torch
 
 from . import build
+from .coded_gradient import pick_bm
 from ..core.field import P
-
-SMEM_TARGET = 100 * 1024       # bytes of X~ slice per block
-SMEM_MAX = 227 * 1024          # an H100 block's dynamic shared memory
-MAX_BM = 64
 
 _FN = None
 
@@ -44,15 +42,6 @@ def _fn():
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
-
-
-def pick_bm(d: int, c: int) -> int:
-    """Rows of X~ per block: as many as fit SMEM_TARGET, at least 1."""
-    bm = max(1, min(MAX_BM, SMEM_TARGET // (4 * (d + c))))
-    if 4 * bm * (d + c) > SMEM_MAX:
-        raise ValueError(f"fused_step: d={d}, C={c} does not fit one row of "
-                         f"X~ in shared memory")
-    return bm
 
 
 def fused_step(x, w, coeffs, adv_off, dfull, rvec, base, xty, wsh, radd,

@@ -12,11 +12,15 @@ from __future__ import annotations
 
 import collections
 
+from . import coded_gradient as _cg
+from . import field_poly as _fp
 from . import fused_step as _fs
 from . import modmatmul as _mm
 from . import ref
 
-KERNELS = ("modmatmul", "modmatmul_batched", "fused_step")
+KERNELS = ("modmatmul", "modmatmul_batched", "fused_step",
+           "coded_gradient_batched", "coded_gradient_matrix",
+           "coded_gradient", "poly_eval")
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -45,6 +49,43 @@ def modmatmul_batched(a, b):
         return ref.modmatmul_batched(a, b)
     out = _mm.modmatmul_batched(a, b)
     LAUNCHES["modmatmul_batched"] += 1
+    return out
+
+
+def poly_eval(z, coeffs):
+    """Elementwise ghat(z) over F_p; z any shape, coeffs (r+1,)."""
+    if z.device.type == "cpu":
+        return ref.poly_eval(z, coeffs)
+    out = _fp.poly_eval(z, coeffs)
+    LAUNCHES["poly_eval"] += 1
+    return out
+
+
+def coded_gradient(x, w, coeffs):
+    """f = x^T ghat(x w) for one client; x (m, d), w (d,)."""
+    if x.device.type == "cpu":
+        return ref.coded_gradient(x, w, coeffs)
+    out = _cg.coded_gradient(x, w, coeffs)
+    LAUNCHES["coded_gradient"] += 1
+    return out
+
+
+def coded_gradient_batched(x, w, coeffs):
+    """f[n] = x[n]^T ghat(x[n] w[n]) for every client; x (N, m, d),
+    w (N, d): the siloed schedule's Phase 3 for a vector model."""
+    if x.device.type == "cpu":
+        return ref.coded_gradient_batched(x, w, coeffs)
+    out = _cg.coded_gradient_batched(x, w, coeffs)
+    LAUNCHES["coded_gradient_batched"] += 1
+    return out
+
+
+def coded_gradient_matrix(x, w, coeffs):
+    """The same for a matrix model w (N, d, C); returns (N, d, C)."""
+    if x.device.type == "cpu":
+        return ref.coded_gradient_matrix(x, w, coeffs)
+    out = _cg.coded_gradient_matrix(x, w, coeffs)
+    LAUNCHES["coded_gradient_matrix"] += 1
     return out
 
 

@@ -56,6 +56,25 @@ def modmatmul(a, b):
     return modmatmul_batched(a, b)
 
 
+def poly_eval(z, coeffs: Public):
+    """Horner over F_p, elementwise; coeffs (r+1,) on z's device."""
+    return field.evaluate_poly_dyn(coeffs, z)
+
+
+def coded_gradient(x: Coded, w: Coded, coeffs: Public) -> Coded:
+    """f = x^T ghat(x w) for one client: x (m, d), w (d,)."""
+    z = modmatmul(x, w[:, None])[:, 0]
+    g = field.evaluate_poly_dyn(coeffs, z)
+    return modmatmul(x.t(), g[:, None])[:, 0]
+
+
+def coded_gradient_batched(x: Coded, w: Coded, coeffs: Public) -> Coded:
+    """f[n] = x[n]^T ghat(x[n] w[n]) for a vector model w: (N, d)."""
+    z = modmatmul_batched(x, w[..., None])               # (N, m, 1)
+    g = field.evaluate_poly_dyn(coeffs, z)
+    return modmatmul_batched(x.transpose(1, 2), g)[..., 0]   # (N, d)
+
+
 def coded_gradient_matrix(x: Coded, w: Coded, coeffs: Public) -> Coded:
     """f[n] = x[n]^T ghat(x[n] @ w[n]) for a matrix model w: (N, d, C)."""
     z = modmatmul_batched(x, w)                          # (N, m, C)

@@ -1,0 +1,69 @@
+"""Coded straggler tolerance: the paper's recovery threshold as a budget.
+
+A COPML gradient round decodes from ANY R = (2r+1)(K+T-1)+1 of N coded
+contributions, and Shamir-shared secure aggregation needs only T+1 of N
+shares.  `straggler_budget` reports how many clients a configuration can
+lose per step at zero recovery cost; `validate_budget` turns that budget
+into a hard check that api.fit(..., faults=plan) runs before any compute.
+
+(Re-meshing on restart, the JAX package's replan_shape / replan_mesh, comes
+with the port's multi-device engine.)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..core import lagrange
+
+
+@dataclasses.dataclass(frozen=True)
+class StragglerBudget:
+    n: int
+    recovery_threshold: int
+
+    @property
+    def tolerable(self) -> int:
+        return self.n - self.recovery_threshold
+
+
+def straggler_budget(n: int, k: int, t: int, r: int = 1) -> StragglerBudget:
+    return StragglerBudget(n, lagrange.recovery_threshold(r, k, t))
+
+
+def secure_agg_budget(n: int, t: int) -> StragglerBudget:
+    """Shamir aggregation: any T+1 of N shares reconstruct."""
+    return StragglerBudget(n, t + 1)
+
+
+class FaultPlanViolation(ValueError):
+    """A fault schedule drops below the protocol's recovery threshold.
+
+    Raised by plan validation before any compute happens; the message names
+    the first violating step, its availability, and the threshold."""
+
+
+def plan_headroom(available_counts, threshold: int) -> np.ndarray:
+    """Per-step headroom: available contributors minus the recovery
+    threshold.  Negative entries are the steps a decode would fail."""
+    return np.asarray(available_counts, np.int64) - int(threshold)
+
+
+def validate_budget(available_counts, threshold: int,
+                    what: str = "decode") -> np.ndarray:
+    """Reject schedules that ever drop below `threshold` contributors.
+
+    available_counts: per-step number of honest, on-time clients.
+    Returns the per-step headroom array on success; raises
+    FaultPlanViolation naming the first violating step otherwise."""
+    head = plan_headroom(available_counts, threshold)
+    bad = np.flatnonzero(head < 0)
+    if bad.size:
+        s = int(bad[0])
+        raise FaultPlanViolation(
+            f"fault plan leaves {int(head[s]) + threshold} available "
+            f"clients at step {s}, below the {what} recovery threshold "
+            f"{threshold} ({bad.size} violating step(s) total)")
+    return head

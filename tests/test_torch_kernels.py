@@ -16,6 +16,8 @@ from repro.core import field as jfield
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import field
+from repro_torch.kernels import coded_gradient as cg
+from repro_torch.kernels import field_poly as fp
 from repro_torch.kernels import fused_step as fs
 from repro_torch.kernels import modmatmul as mm
 from repro_torch.kernels import ops, ref
@@ -121,7 +123,101 @@ def test_kernel_launchers_refuse_cpu_tensors():
 
 
 def test_pick_bm_fits_shared_memory():
+    assert fs.pick_bm is cg.pick_bm          # one gradient body, one height
     assert fs.pick_bm(3073, 1) == 8          # cifar10_case2: ~98 KB a block
-    assert fs.pick_bm(24, 10) == fs.MAX_BM
+    assert fs.pick_bm(24, 10) == cg.MAX_BM
     with pytest.raises(ValueError):
         fs.pick_bm(60000, 1)
+
+
+# ragged small shapes: m = 13 and d in {6, 24} are not multiples of the
+# JAX kernels' blocks; every JAX Pallas shape is a compile of several
+# seconds in interpret mode, so each function takes two that between them
+# cover N in {3, 5}, d in {6, 24}, C in {1, 10} and degrees 1 and 3
+
+
+def _coeffs(rng, degree):
+    return _fld(rng, degree + 1)
+
+
+@pytest.mark.parametrize("n,m,d,c,degree", [(3, 13, 6, 1, 1),
+                                            (5, 13, 24, 10, 3)])
+def test_coded_gradient_matrix_plain_matches_pallas(n, m, d, c, degree):
+    rng = np.random.default_rng(n * d + c + degree)
+    x, w, co = _fld(rng, n, m, d), _fld(rng, n, d, c), _coeffs(rng, degree)
+    got = ref.coded_gradient_matrix(_t(x), _t(w), _t(co))
+    jx, jw, jc = jnp.asarray(x), jnp.asarray(w), jnp.asarray(co)
+    _eq(got, jops.coded_gradient_matrix(jx, jw, jc, force_pallas=True))
+    _eq(got, jref.coded_gradient_matrix(jx, jw, jc))
+
+
+@pytest.mark.parametrize("n,m,d,degree", [(3, 13, 24, 1), (5, 13, 6, 3)])
+def test_coded_gradient_batched_plain_matches_pallas(n, m, d, degree):
+    rng = np.random.default_rng(n * d + degree)
+    x, w, co = _fld(rng, n, m, d), _fld(rng, n, d), _coeffs(rng, degree)
+    got = ref.coded_gradient_batched(_t(x), _t(w), _t(co))
+    jx, jw, jc = jnp.asarray(x), jnp.asarray(w), jnp.asarray(co)
+    _eq(got, jops.coded_gradient_batched(jx, jw, jc, force_pallas=True))
+    _eq(got, jref.coded_gradient_batched(jx, jw, jc))
+
+
+@pytest.mark.parametrize("m,d,degree", [(13, 24, 3)])
+def test_coded_gradient_plain_matches_pallas(m, d, degree):
+    rng = np.random.default_rng(m + d + degree)
+    x, w, co = _fld(rng, m, d), _fld(rng, d), _coeffs(rng, degree)
+    got = ref.coded_gradient(_t(x), _t(w), _t(co))
+    jx, jw, jc = jnp.asarray(x), jnp.asarray(w), jnp.asarray(co)
+    _eq(got, jops.coded_gradient(jx, jw, jc, force_pallas=True))
+    _eq(got, jref.coded_gradient(jx, jw, jc))
+
+
+@pytest.mark.parametrize("shape,degree", [((3, 13), 1), ((4099,), 3)])
+def test_poly_eval_plain_matches_pallas(shape, degree):
+    rng = np.random.default_rng(len(shape) + degree)
+    z, co = _fld(rng, *shape), _coeffs(rng, degree)
+    got = ref.poly_eval(_t(z), _t(co))
+    _eq(got, jops.poly_eval(jnp.asarray(z), jnp.asarray(co),
+                            force_pallas=True))
+    _eq(got, jref.poly_eval(jnp.asarray(z), jnp.asarray(co)))
+
+
+def test_cpu_dispatch_of_the_siloed_kernels():
+    """The coded-gradient and poly_eval entries take the plain versions on
+    CPU tensors and count no launch."""
+    rng = np.random.default_rng(4)
+    ops.reset_launches()
+    x, co = _t(_fld(rng, 3, 13, 6)), _t(_coeffs(rng, 1))
+    w, wm = _t(_fld(rng, 3, 6)), _t(_fld(rng, 3, 6, 10))
+    _eq(ops.coded_gradient_batched(x, w, co),
+        ref.coded_gradient_batched(x, w, co))
+    _eq(ops.coded_gradient_matrix(x, wm, co),
+        ref.coded_gradient_matrix(x, wm, co))
+    _eq(ops.coded_gradient(x[0], w[0], co), ref.coded_gradient(x[0], w[0], co))
+    _eq(ops.poly_eval(x, co), ref.poly_eval(x, co))
+    # the three coded-gradient forms are views of one another
+    _eq(ref.coded_gradient_batched(x, w, co),
+        ref.coded_gradient_matrix(x, w[..., None], co)[..., 0])
+    _eq(ref.coded_gradient(x[0], w[0], co),
+        ref.coded_gradient_batched(x, w, co)[0])
+    assert ops.launch_counts() == {k: 0 for k in ops.KERNELS}
+
+
+def test_siloed_kernel_launchers_refuse_bad_inputs():
+    """The coded-gradient and poly_eval launchers take only contiguous
+    int32 CUDA tensors of matching shapes; they never fall back."""
+    rng = np.random.default_rng(5)
+    x, w, co = _t(_fld(rng, 3, 13, 6)), _t(_fld(rng, 3, 6)), _t(_fld(rng, 2))
+    with pytest.raises(ValueError, match="cuda"):
+        cg.coded_gradient_batched(x, w, co)
+    with pytest.raises(ValueError, match="cuda"):
+        cg.coded_gradient(x[0], w[0], co)
+    with pytest.raises(TypeError, match="int32"):
+        cg.coded_gradient_matrix(x.to(torch.int64), w[..., None], co)
+    with pytest.raises(ValueError, match="shapes"):
+        cg.coded_gradient_matrix(x, w[:, :5, None], co)
+    with pytest.raises(ValueError, match="cuda"):
+        fp.poly_eval(x, co)
+    with pytest.raises(TypeError, match="int32"):
+        fp.poly_eval(x.to(torch.int64), co)
+    with pytest.raises(ValueError, match=r"\(r\+1,\)"):
+        fp.poly_eval(x, co[None])

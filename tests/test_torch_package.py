@@ -52,10 +52,30 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
 def test_kernel_sources_and_launch_counts():
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
+    assert set(build.SOURCES) == {"modmatmul", "fused_step",
+                                  "coded_gradient", "field_poly"}
     assert build.BUILD_DIR.name == "build"
+    # every TPU kernel of the JAX package has a launch counter
+    assert set(ops.KERNELS) == {
+        "modmatmul", "modmatmul_batched", "fused_step",
+        "coded_gradient_batched", "coded_gradient_matrix", "coded_gradient",
+        "poly_eval"}
     assert set(ops.launch_counts()) == set(ops.KERNELS)
     text = (REPO / "pyproject.toml").read_text()
     assert "kernels/csrc/*.cu" in text and '"gpu:' in text
+
+
+def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
+    """Editing a shared csrc/*.cuh header renames every library, so a
+    library built from the old header is never loaded."""
+    for src in build.CSRC.iterdir():
+        shutil.copy(src, tmp_path / src.name)
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build._lib_path(n) for n in build.SOURCES}
+    header = tmp_path / "coded_gradient.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: build._lib_path(n) for n in build.SOURCES}
+    assert all(before[n] != after[n] for n in build.SOURCES)
 
 
 def _run_chip_smoke(cwd: Path):

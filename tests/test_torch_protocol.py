@@ -173,3 +173,162 @@ def test_cpu_data_matches_jax_builders():
                              jworkloads.get(name).data()):
             _eq(got, want)
     assert torch.get_default_dtype() == torch.float32
+
+
+# ------------------------------------------- the siloed schedule and faults
+
+# smoke_straggler (N=13, K=3, T=1, R=10) under tests/test_faults.py's plan:
+# stragglers, a dropout and an adversary, min availability exactly R.
+# The shas are the JAX package's run_copml_engine(..., "jit", PRNGKey(0),
+# iters=6) with that plan, the same on both of its schedules.
+FAULTY_SHARES_SHA = \
+    "239bb5c60a80c270b9417cf6025b80b18ef8a8dcb900ecda07ab9b289593352d"
+FAULTY_HIST_SHA = \
+    "d0a119966962c28edbfed2d3e6d6dffc3fc2413e49d189dc8148748d4147b86a"
+
+
+def _fault_plan():
+    return api.FaultPlan.from_schedule(
+        13, 6, stragglers={1: (0, 1), 4: (2,)}, dropouts={2: (7,)},
+        adversaries={3: (8,)})
+
+
+def _random_state(rng, proto):
+    """Field-valued CopmlState arrays of `proto`'s shapes (the phases below
+    take any state), as numpy."""
+    n, mk = proto.cfg.n_clients, -(-proto.m // proto.cfg.k)
+    fld = lambda *s: rng.integers(0, P, s).astype(np.int32)  # noqa: E731
+    return (fld(n, *proto.w_shape), fld(n, mk, proto.d),
+            fld(n, *proto.w_shape), fld(n, *proto.w_shape))
+
+
+P = protocol.field.P
+
+
+def _carried_state(name, seed):
+    """(JAX Copml in siloed mode, port Copml, JAX state, port state, coded
+    model) over field-valued arrays of `name`'s shapes."""
+    from repro.core.protocol import CopmlState as JState
+    import jax.numpy as jnp
+    wl = jworkloads.get(name)
+    jproto = JCopml(wl.cfg, wl.m, wl.d, objective=wl.objective)
+    jproto.fused_mode = "0"
+    tproto = protocol.Copml(wl.cfg, wl.m, wl.d, objective=wl.objective,
+                            device="cpu")
+    w_sh, cx, xty, coded_w = _random_state(np.random.default_rng(seed),
+                                           tproto)
+    jstate = JState(w_shares=jnp.asarray(w_sh), coded_x=jnp.asarray(cx),
+                    xty_shares=jnp.asarray(xty), step=jnp.asarray(0))
+    tstate = protocol.state_from_numpy(w_sh, cx, xty)
+    return jproto, tproto, jstate, tstate, coded_w
+
+
+@pytest.mark.parametrize("name", ["smoke", "mnist10_like"])
+def test_local_gradient_matches_jax(name):
+    """Phase 3 for a (d,) and a (d, C) model (the batched and the matrix
+    coded-gradient entries)."""
+    import jax.numpy as jnp
+    jproto, tproto, jstate, tstate, coded_w = _carried_state(name, 1)
+    _eq(tproto.local_gradient(tstate.coded_x, torch.from_numpy(coded_w)),
+        jax.jit(jproto.local_gradient)(jstate.coded_x, jnp.asarray(coded_w)))
+
+
+def test_decode_and_update_matches_jax():
+    """decode_and_update in its static-subset and (subset_idx, dvec) forms,
+    and a siloed iteration with an adversary, each bit-equal to the JAX
+    package's methods on the same state (one jitted JAX program); the
+    port's fused schedule gives the adversary's step the same bits."""
+    import jax.numpy as jnp
+    jproto, tproto, jstate, tstate, coded_w = _carried_state("smoke", 2)
+    n, rthr = jproto.cfg.n_clients, jproto.cfg.recovery_threshold
+    sub = tuple(range(n - rthr, n))                  # the LAST R clients
+    adv = np.zeros(n, bool)
+    adv[0] = True
+    jidx, jdv = jproto.plan_constants([sub, tuple(range(rthr))])
+
+    def jax_phases(key, st, f):
+        return (jproto.decode_and_update(key, st, f, sub).w_shares,
+                jproto.decode_and_update(key, st, f, subset_idx=jidx[0],
+                                         dvec=jdv[0]).w_shares,
+                jproto.iteration(key, st, subset_idx=jidx[0], dvec=jdv[0],
+                                 adv=jnp.asarray(adv)).w_shares)
+
+    f_t = tproto.local_gradient(tstate.coded_x, torch.from_numpy(coded_w))
+    with jax.threefry_partitionable(False):
+        key = jax.random.PRNGKey(5)
+        want = jax.jit(jax_phases)(key, jstate, jnp.asarray(f_t.numpy()))
+    tkey = jrandom.as_key(np.asarray(key))
+    tidx, tdv = tproto.plan_constants([sub, tuple(range(rthr))])
+    _eq(tidx, jidx)
+    _eq(tdv, jdv)
+    assert tidx.dtype == torch.int64 and tdv.dtype == torch.int32
+    _eq(tproto.decode_and_update(tkey, tstate, f_t, sub).w_shares, want[0])
+    _eq(tproto.decode_and_update(tkey, tstate, f_t, subset_idx=tidx[0],
+                                 dvec=tdv[0]).w_shares, want[1])
+    for mode in ("0", "1"):
+        tproto.fused_mode = mode
+        got = tproto.iteration(tkey, tstate, subset_idx=tidx[0], dvec=tdv[0],
+                               adv=torch.from_numpy(adv))
+        _eq(got.w_shares, want[2])
+
+
+def _count_siloed(monkeypatch):
+    calls = {"local_gradient": 0}
+    real = protocol.Copml.local_gradient
+
+    def spy(self, *a, **kw):
+        calls["local_gradient"] += 1
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(protocol.Copml, "local_gradient", spy)
+    return calls
+
+
+def test_fit_siloed_reproduces_goldens(monkeypatch):
+    """REPRO_FUSED_STEP=0: the siloed schedule gives the fused schedule's
+    (and the JAX package's) goldens."""
+    monkeypatch.setenv("REPRO_FUSED_STEP", "0")
+    calls = _count_siloed(monkeypatch)
+    res = api.fit("smoke", "copml", "jit", key=0, iters=10, device="cpu")
+    assert calls["local_gradient"] == 10
+    np.testing.assert_array_equal(np.asarray(res.weights, np.float64),
+                                  np.asarray(GOLDEN_W))
+    assert _sha(res.state.w_shares.numpy(), np.int32) == GOLDEN_SHARES_SHA
+    assert _sha(res.history, np.float32) == GOLDEN_HIST_SHA
+    assert res.availability is None
+
+
+@pytest.mark.parametrize("mode", ["0", "1"])
+def test_faulty_fit_matches_jax_pins_on_both_schedules(monkeypatch, mode):
+    """The plan's stragglers, dropout and adversary give the JAX package's
+    shas, and the same opened model and history as the fault-free run."""
+    monkeypatch.setenv("REPRO_FUSED_STEP", mode)
+    calls = _count_siloed(monkeypatch)
+    plan = _fault_plan()
+    res = api.fit("smoke_straggler", "copml", "eager", key=0, iters=6,
+                  faults=plan, device="cpu")
+    assert calls["local_gradient"] == (6 if mode == "0" else 0)
+    assert _sha(res.state.w_shares.numpy(), np.int32) == FAULTY_SHARES_SHA
+    assert _sha(res.history, np.float32) == FAULTY_HIST_SHA
+    np.testing.assert_array_equal(res.availability, plan.available)
+    assert "churn: min 10/13 clients available" in res.summary()
+    free = api.fit("smoke_straggler", "copml", "jit", key=0, iters=6,
+                   subset="all", device="cpu")
+    _eq(res.weights, free.weights)
+    _eq(res.history, free.history)
+
+
+def test_driver_cache_follows_the_schedule_env(monkeypatch):
+    """The driver cache is keyed on REPRO_FUSED_STEP too: flipping it after
+    a workload's first fit selects the other schedule."""
+    from repro_torch.api import protocols as tprotocols
+    wl, cpu = api.get_workload("smoke"), torch.device("cpu")
+    monkeypatch.setenv("REPRO_FUSED_STEP", "1")
+    fused = tprotocols.driver(wl, cpu)
+    monkeypatch.setenv("REPRO_FUSED_STEP", "0")
+    siloed = tprotocols.driver(wl, cpu)
+    assert (fused.fused_mode, siloed.fused_mode) == ("1", "0")
+    assert tprotocols.driver(wl, cpu) is siloed
+    monkeypatch.setenv("REPRO_FUSED_STEP", "2")
+    with pytest.raises(ValueError, match="REPRO_FUSED_STEP"):
+        tprotocols.driver(wl, cpu)
