@@ -8,7 +8,15 @@ Phases (a failed phase fails the run; no failure is caught):
               poly_eval) against its plain torch version (run on CPU copies:
               exact, bit for bit) at ragged shapes and at the main path's
               shapes; time each kernel and its plain version on the card
-              with CUDA events
+              with CUDA events, and by device time (torch.profiler).  The
+              ragged shapes reach every branch of the redesigned kernels:
+              the thin GEMM at M, K in {1, 8, 17, 50, 64, 65}, odd N,
+              batch stride 0, a strided B that keeps the tiled path; the
+              gradient kernel's three accumulator modes, clients off
+              16-byte lines, bm = 3 and 7, m below one slice, X~ sizes not
+              a multiple of 16 bytes, an X~ starting 4 bytes off, C = 1
+              and 10, one adversary's offset, and x = w = p - 1 at
+              d = 40000 (pass 1's lane sums past 2^58)
   3. golden   api.fit on cuda reproduces the smoke goldens (weights, share
               and history sha256) and the pinned mnist10_like /
               linreg_smoke / cifar10_like / smoke_straggler shas of the JAX
@@ -19,7 +27,9 @@ Phases (a failed phase fails the run; no failure is caught):
               at the paper's full width (N=50, m=9019, d=3073, K=10, T=7);
               kernel launch counts are reset just before it and read just
               after, and the last step's fused_step operands are re-checked
-              against the plain version
+              against the plain version; every field GEMM of the fit is
+              counted by shape, path and phase (setup, step), re-checked
+              and timed by device time
   5. siloed   the same fit on the siloed schedule: coded_gradient_batched
               once per step, fused_step never, the last step's operands
               re-checked, weights and history equal to the fused run's;
@@ -36,11 +46,15 @@ chiprun_out/chip_smoke.json.
 
   python3 chip_smoke.py            # every phase (needs one CUDA card)
   python3 chip_smoke.py --quick    # build, ragged kernel checks, goldens
+  python3 chip_smoke.py --compare OTHER/src   # the redesigned kernels of
+      # another checkout (e.g. the parent commit's) and of this one, timed
+      # in turns other, this, this, other; writes chiprun_out/compare.json
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import hashlib
 import json
 import os
@@ -171,6 +185,55 @@ def bound(bytes_moved: float, ops: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_ms(torch, fn, reps: int):
+    """Device time per call of `fn` (every kernel and memset it launches,
+    each once a call), from torch.profiler's CUDA activity over `reps`
+    calls after a warm-up: for calls of a few microseconds the host's
+    wrapper time would swamp a CUDA-event timing of back-to-back calls.
+
+    Each kernel name runs once a call, so its mean time, summed over
+    names, stands even when the profiler drops a launch at the window's
+    edge (seen on an H100: 2 of 3 launches kept).  A window with no device
+    activity at all (also seen there) is taken again; after three such
+    windows the device time is not measured and None is returned (callers
+    keep their CUDA-event time under its own key, never as device time)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()                           # the window's edge
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.count]
+        if events:
+            return sum(e.self_device_time_total / e.count
+                       for e in events) / 1e3
+    log("device_ms: the profiler saw no device time in three windows; "
+        "device time not measured")
+    return None
+
+
+def strided_field(ck: "Checker", shape, stride):
+    """Random field elements viewed with `shape` and `stride` (a stride may
+    be 0, as for a broadcast operand); returns (view, its storage)."""
+    size = 1 + sum((n - 1) * st for n, st in zip(shape, stride))
+    base = ck.field(size)
+    return ck.torch.as_strided(base, shape, stride), base
+
+
+def grad_label(n, m, d, c) -> str:
+    """The gradient kernel's plan at a shape, and whether X~'s size is a
+    multiple of 16 bytes and its clients start on 16-byte lines."""
+    from repro_torch.kernels.plan import gradient_plan
+    pl = gradient_plan(m, d, c)
+    return (f"[{pl['mode']} bm={pl['bm']} stages={pl['stages']} "
+            f"size%16={(4 * n * m * d) % 16} client%16={(4 * m * d) % 16}]")
+
+
 def phase_kernels(ck: Checker, quick: bool) -> dict:
     """Ragged and main-path checks; returns the JSON rows per kernel."""
     torch = ck.torch
@@ -189,6 +252,36 @@ def phase_kernels(ck: Checker, quick: bool) -> dict:
     at, bt = ck.field(40, 30), ck.field(70, 40)
     ck.compare("modmatmul", mm.modmatmul(at.t(), bt.t()),
                ref.modmatmul(at.t().cpu(), bt.t().cpu()), "transposed views")
+    # thin path: every M x K in {1, 8, 17, 50, 64, 65}^2 at an odd N (rows
+    # start 4, 8 or 12 bytes off a 16-byte line), past the grid's stride,
+    # and a strided B (M, K <= 64) that must keep the tiled path
+    from repro_torch.kernels.plan import gemm_path
+    paths = {"thin": 0, "tiled": 0}
+    sizes = (1, 8, 17, 50, 64, 65)
+    for m in sizes:
+        for k in sizes:
+            a, b = ck.field(m, k), ck.field(k, 2053)
+            path = gemm_path(m, k, b.stride(1), b.shape[1])
+            paths[path] += 1
+            ck.compare("modmatmul", mm.modmatmul(a, b),
+                       ref.modmatmul(a.cpu(), b.cpu()),
+                       f"{path} ({m},{k})@({k},2053)")
+    a, b = ck.field(50, 7), ck.field(7, 2_500_001)
+    out = mm.modmatmul(a, b)
+    for cols in (slice(0, 3000), slice(2_497_001, 2_500_001)):
+        ck.compare("modmatmul", out[:, cols],
+                   ref.modmatmul(a.cpu(), b[:, cols].cpu()),
+                   "thin (50,7)@(7,2500001) grid stride")
+    a8, bt = ck.field(8, 7), ck.field(300, 7).t()      # B's columns strided
+    assert gemm_path(8, 7, bt.stride(1), 300) == "tiled"
+    ck.compare("modmatmul", mm.modmatmul(a8, bt),
+               ref.modmatmul(a8.cpu(), bt.cpu()), "tiled strided B (8,7)@(7,300)")
+    ab = ck.field(50, 17)[None].expand(6, 50, 17)
+    bb = ck.field(6, 17, 1001)
+    ck.compare("modmatmul_batched", mm.modmatmul_batched(ab, bb),
+               ref.modmatmul_batched(ab.cpu(), bb.cpu()),
+               "thin batch stride 0 (6,50,17)@(6,17,1001)")
+    log(f"kernels: thin/tiled GEMM checks by path {paths}")
     for (bsz, m, k, n) in [(3, 17, 40, 19), (13, 24, 13, 10), (2, 1, 9, 7)]:
         a, b = ck.field(bsz, m, k), ck.field(bsz, k, n)
         ck.compare("modmatmul_batched", mm.modmatmul_batched(a, b),
@@ -206,12 +299,29 @@ def phase_kernels(ck: Checker, quick: bool) -> dict:
                ref.modmatmul_batched(row.cpu()[None, None].expand(13, 1, 13),
                                      mix.cpu()), "broadcast decode row")
     for (n, m, d, c, deg) in [(5, 37, 29, 1, 1), (13, 37, 29, 10, 1),
-                              (5, 20, 3073, 1, 3), (13, 130, 24, 10, 1)]:
+                              (5, 20, 3073, 1, 3), (13, 130, 24, 10, 1),
+                              (3, 37, 29, 1, 1), (4, 45, 4000, 1, 1),
+                              (2, 19, 3073, 10, 3), (2, 3, 40000, 1, 1),
+                              (3, 3, 24, 1, 1)]:
         ops_ = fused_operands(ck, n, m, d, c, deg)
+        if n == 3:                         # the fault form: one adversary
+            adv = torch.zeros(n, dtype=torch.int32, device="cuda")
+            adv[1] = 1 << 20
+            ops_["args"] = ops_["args"][:3] + (adv,) + ops_["args"][4:]
         got = fs.fused_step(*ops_["args"], **ops_["kw"])
         want = ref.fused_step(*[t.cpu() for t in ops_["args"]], **ops_["kw"])
+        mode = grad_label(n, m, d, c)
         for g, w_, what in zip(got, want, ("f", "new_w")):
-            ck.compare("fused_step", g, w_, f"N={n} m={m} d={d} C={c} {what}")
+            ck.compare("fused_step", g, w_,
+                       f"N={n} m={m} d={d} C={c} {mode} {what}")
+    # x = w = p - 1 past d = 32768: pass 1's lane sums pass 2^58
+    ops_ = fused_operands(ck, 2, 3, 40000, 1, 1)
+    for t in ops_["args"][:2]:
+        t.fill_(ck.P - 1)
+    got = fs.fused_step(*ops_["args"], **ops_["kw"])
+    want = ref.fused_step(*[t.cpu() for t in ops_["args"]], **ops_["kw"])
+    for g, w_, what in zip(got, want, ("f", "new_w")):
+        ck.compare("fused_step", g, w_, f"N=2 m=3 d=40000 x = w = p - 1 {what}")
     log(f"kernels: ragged checks passed {dict(ck.checks)}")
     if quick:
         return {}
@@ -229,11 +339,13 @@ def phase_kernels(ck: Checker, quick: bool) -> dict:
                    ref.modmatmul(a.cpu(), b[:, cols].cpu()), "share X slice")
     del out
     ms = ck.time_ms(lambda: mm.modmatmul(a, b), 5)
+    dev = device_ms(torch, lambda: mm.modmatmul(a, b), 5)
     plain = ck.time_ms(lambda: ref.modmatmul(a, b), 1)
     bb, by = bound(4.0 * (a.numel() + b.numel() + n_cl * b.shape[1]),
                    2.0 * n_cl * t * b.shape[1])
     rows["modmatmul"] = dict(shape=f"({n_cl},{t})@({t},{b.shape[1]})",
-                             ms=ms, plain_ms=plain, bound_ms=bb, bound_by=by)
+                             ms=ms, device_ms=dev, plain_ms=plain,
+                             bound_ms=bb, bound_by=by)
     del a, b
     torch.cuda.empty_cache()
     # per-shape detail: LCC encode, reconstruct, per-iteration GEMMs
@@ -247,11 +359,12 @@ def phase_kernels(ck: Checker, quick: bool) -> dict:
         ck.compare("modmatmul", mm.modmatmul(a, b)[:, :2048],
                    ref.modmatmul(a.cpu(), b[:, :2048].cpu()), label)
         ms_ = ck.time_ms(lambda: mm.modmatmul(a, b), 10)
+        dev_ = device_ms(torch, lambda: mm.modmatmul(a, b), 10)
         pl_ = ck.time_ms(lambda: ref.modmatmul(a, b), 1)
         bb_, _ = bound(4.0 * (a.numel() + b.numel() + m * n), 2.0 * m * k * n)
         ck.rows.append(dict(kernel="modmatmul", what=label,
                             shape=f"({m},{k})@({k},{n})", ms=ms_,
-                            plain_ms=pl_, bound_ms=bb_))
+                            device_ms=dev_, plain_ms=pl_, bound_ms=bb_))
         del a, b
     torch.cuda.empty_cache()
 
@@ -263,13 +376,15 @@ def phase_kernels(ck: Checker, quick: bool) -> dict:
         ck.compare("modmatmul_batched", out[i],
                    ref.modmatmul(x[i].cpu().t(), y[i].cpu()), f"X^T y[{i}]")
     ms = ck.time_ms(lambda: mm.modmatmul_batched(x.transpose(1, 2), y), 5)
+    dev = device_ms(torch, lambda: mm.modmatmul_batched(x.transpose(1, 2), y),
+                    5)
     plain = ck.time_ms(
         lambda: ref.modmatmul_batched(x.transpose(1, 2), y), 1)
     bb, by = bound(4.0 * (x.numel() + y.numel() + out.numel()),
                    2.0 * x.numel())
     rows["modmatmul_batched"] = dict(
         shape=f"({n_cl},{d},{m_rows})@({n_cl},{m_rows},1)", ms=ms,
-        plain_ms=plain, bound_ms=bb, bound_by=by)
+        device_ms=dev, plain_ms=plain, bound_ms=bb, bound_by=by)
     del x, y, out
     torch.cuda.empty_cache()
     for label, (a, b) in {
@@ -282,16 +397,19 @@ def phase_kernels(ck: Checker, quick: bool) -> dict:
         ck.compare("modmatmul_batched", mm.modmatmul_batched(a, b),
                    ref.modmatmul_batched(a.cpu(), b.cpu()), label)
         ms_ = ck.time_ms(lambda: mm.modmatmul_batched(a, b), 20)
+        dev_ = device_ms(torch, lambda: mm.modmatmul_batched(a, b), 20)
         pl_ = ck.time_ms(lambda: ref.modmatmul_batched(a, b), 3)
         bb_, _ = bound(4.0 * (a[0].numel() + b.numel() + b.shape[0]
                               * a.shape[1] * b.shape[2]),
                        2.0 * b.shape[0] * a.shape[1] * b.shape[1] * b.shape[2])
         ck.rows.append(dict(kernel="modmatmul_batched", what=label,
                             shape=f"{tuple(a.shape)}@{tuple(b.shape)}",
-                            ms=ms_, plain_ms=pl_, bound_ms=bb_))
+                            ms=ms_, device_ms=dev_, plain_ms=pl_,
+                            bound_ms=bb_))
 
     # fused step at cifar10_case2 (C=1) and mnist10_like (N=13, C=10)
     for label, (n, m, dd, c) in {"cifar10_case2": (n_cl, mk, d, 1),
+                                 "cifar10_case2 C=10": (n_cl, mk, d, 10),
                                  "mnist10_like": (13, 98, 24, 10)}.items():
         ops_ = fused_operands(ck, n, m, dd, c, 1)
         got = fs.fused_step(*ops_["args"], **ops_["kw"])
@@ -304,8 +422,11 @@ def phase_kernels(ck: Checker, quick: bool) -> dict:
                          2)
         nbytes = 4.0 * (n * m * dd + 7 * n * dd * c + 3 * n + 2)
         bb_, by_ = bound(nbytes, 4.0 * n * m * dd * c)
+        dev_ = device_ms(torch, lambda: fs.fused_step(*ops_["args"],
+                                                      **ops_["kw"]), 20)
         rec = dict(shape=f"N={n} m={m} d={dd} C={c}", ms=ms_, plain_ms=pl_,
-                   bound_ms=bb_, bound_by=by_)
+                   bound_ms=bb_, bound_by=by_, device_ms=dev_,
+                   plan=grad_label(n, m, dd, c))
         ck.rows.append(dict(kernel="fused_step", what=label, **rec))
         if label == "cifar10_case2":
             rows["fused_step"] = rec
@@ -354,6 +475,110 @@ def fused_operands(ck: Checker, n, m, d, c, degree) -> dict:
                        inv2k1=field.host_inv(1 << 18), k1=18)}
 
 
+class ShapeLog:
+    """Counts every field-GEMM call of a fit by (phase, op, shapes,
+    strides); the phase is "setup" inside Copml.setup and "step" after."""
+
+    OPS = ("modmatmul", "modmatmul_batched")
+
+    def __init__(self):
+        self.calls: collections.Counter = collections.Counter()
+        self.phase = "step"
+
+    def __enter__(self):
+        from repro_torch.core import protocol
+        from repro_torch.kernels import ops
+        self._ops, self._proto = ops, protocol
+        self._real = {name: getattr(ops, name) for name in self.OPS}
+        self._setup = protocol.Copml.setup
+
+        def spy(name):
+            def call(a, b):
+                self.calls[(self.phase, name, tuple(a.shape), a.stride(),
+                            tuple(b.shape), b.stride())] += 1
+                return self._real[name](a, b)
+            return call
+
+        def setup(proto, *args, **kw):
+            self.phase = "setup"
+            try:
+                return self._setup(proto, *args, **kw)
+            finally:
+                self.phase = "step"
+
+        for name in self.OPS:
+            setattr(ops, name, spy(name))
+        protocol.Copml.setup = setup
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.OPS:
+            setattr(self._ops, name, self._real[name])
+        self._proto.Copml.setup = self._setup
+
+
+GEMM_TIMES: dict = {}          # (op, shapes, strides) -> (device ms, bound)
+
+
+def gemm_table(ck: Checker, shape_log: ShapeLog, iters: int) -> list:
+    """Every GEMM shape of a fit with its launches (setup; per step scaled
+    to a 50-iteration fit), path, device time, bound and the time lost
+    against the bound in a 50-iteration fit; each shape is checked against
+    the plain version on a column slice."""
+    torch = ck.torch
+    from repro_torch.kernels import modmatmul as mm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.plan import gemm_path
+    rows = []
+    for key, count in sorted(shape_log.calls.items(), key=str):
+        phase, name, ash, ast, bsh, bst = key
+        if name == "modmatmul":
+            bsz, (m_, k_), n_ = 1, ash, bsh[1]
+        else:
+            (bsz, m_, k_), n_ = ash, bsh[2]
+        path = gemm_path(m_, k_, bst[-1], n_)
+        if key[1:] not in GEMM_TIMES:
+            a, abase = strided_field(ck, ash, ast)
+            b, bbase = strided_field(ck, bsh, bst)
+            fn = getattr(mm, name)
+            out = fn(a, b)
+            ck.compare(name, out[..., :2048],
+                       getattr(ref, name)(a.cpu(), b[..., :2048].cpu()),
+                       f"{phase} {path} {ash}@{bsh}")
+            reps = 3 if out.numel() > 50_000_000 else 30
+            dev = device_ms(torch, lambda: fn(a, b), reps)
+            # only where the profiler failed: CUDA events, wrapper included
+            events = ck.time_ms(lambda: fn(a, b), reps) if dev is None \
+                else None
+            bb, by = bound(4.0 * (abase.numel() + bbase.numel() + out.numel()),
+                           2.0 * bsz * m_ * k_ * n_)
+            GEMM_TIMES[key[1:]] = (dev, events, bb, by)
+            del a, b, abase, bbase, out
+            torch.cuda.empty_cache()
+        dev, events, bb, by = GEMM_TIMES[key[1:]]
+        per_fit = count if phase == "setup" else count / iters * 50
+        rows.append(dict(phase=phase, kernel=name, path=path,
+                         shape=f"{ash}@{bsh}", b_stride=list(bst),
+                         launches=count, launches_50_iter_fit=per_fit,
+                         device_ms=dev, events_ms=events, bound_ms=bb,
+                         bound_by=by, lost_ms_50_iter_fit=None if dev is None
+                         else per_fit * (dev - bb)))
+    return rows
+
+
+def log_gemm_table(what: str, rows: list) -> None:
+    for r in rows:
+        if r["device_ms"] is None:
+            took = f"device not measured, events {r['events_ms']:.4f} ms"
+            lost = "not measured"
+        else:
+            took = f"{r['device_ms']:.4f} ms"
+            lost = f"{r['lost_ms_50_iter_fit']:.3f} ms"
+        log(f"  {what} {r['phase']:5s} {r['kernel']:17s} {r['path']:5s} "
+            f"{r['shape']:40s} x{r['launches']:<3d} {took} "
+            f"(bound {r['bound_ms']:.4f}) lost/50-iter fit {lost}")
+
+
 def phase_golden(np) -> None:
     from repro_torch import api
     res = api.fit("smoke", "copml", "jit", key=0, iters=10, device="cuda")
@@ -390,9 +615,10 @@ def phase_full(ck: Checker, np) -> tuple:
     wl.client_data()                       # dataset build is set-up
     iters = 5
     ops.reset_launches()
-    t0 = time.perf_counter()
-    res = api.fit(wl, "copml", "jit", iters=iters, device="cuda")
-    wall = time.perf_counter() - t0
+    with ShapeLog() as shapes:
+        t0 = time.perf_counter()
+        res = api.fit(wl, "copml", "jit", iters=iters, device="cuda")
+        wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     ops.fused_step = launch_fused
     peak = torch.cuda.max_memory_allocated()
@@ -414,6 +640,12 @@ def phase_full(ck: Checker, np) -> tuple:
     # a profile of two more steps from the final state: device time by kernel
     proto = api.protocols.driver(wl, torch.device("cuda"))
     profiled, table = profile_steps(torch, proto, res.state)
+    gemms = gemm_table(ck, shapes, iters)
+    log_gemm_table("fused", gemms)
+    thin = [r for r in gemms if r["path"] == "thin"]
+    assert all(r["path"] == "thin" or r["bound_by"] == "bytes" and
+               "9019" in r["shape"] for r in gemms), gemms
+    assert {r["phase"] for r in thin} == {"setup", "step"}, gemms
 
     summary = dict(workload=wl.name, n=wl.n_clients, m=wl.m, d=wl.d,
                    k=wl.cfg.k, t=wl.cfg.t, iters=iters, wall_s=wall,
@@ -422,7 +654,8 @@ def phase_full(ck: Checker, np) -> tuple:
                    peak_gib=peak / 2 ** 30,
                    final_accuracy=res.final_accuracy,
                    accuracy=[float(a) for a in res.accuracy],
-                   launches=counts, profiled_steps=profiled, profile=table)
+                   launches=counts, profiled_steps=profiled, profile=table,
+                   gemm_shapes=gemms)
     log(f"full: {wl.name} N={wl.n_clients} m={wl.m} d={wl.d} "
         f"setup {summary['setup_s']:.3f} s, {summary['ms_per_iter']:.3f} "
         f"ms/iter, peak {summary['peak_gib']:.2f} GiB, accuracy "
@@ -438,8 +671,13 @@ def phase_kernels_siloed(ck: Checker, quick: bool) -> dict:
     from repro_torch.kernels import field_poly as fp
     from repro_torch.kernels import ref
 
-    def check_cg(label, n, m, d, c, degree):
-        x, w, co = ck.field(n, m, d), ck.field(n, d, c), ck.field(degree + 1)
+    def check_cg(label, n, m, d, c, degree, offset=0, worst=False):
+        x = ck.field(offset + n * m * d)[offset:].view(n, m, d)
+        w, co = ck.field(n, d, c), ck.field(degree + 1)
+        if worst:                          # every product near 2^52
+            x.fill_(ck.P - 1)
+            w.fill_(ck.P - 1)
+        label = f"{label} {grad_label(n, m, d, c)}"
         want = ref.coded_gradient_matrix(x.cpu(), w.cpu(), co.cpu())
         ck.compare("coded_gradient_matrix", cg.coded_gradient_matrix(x, w, co),
                    want, label)
@@ -453,11 +691,23 @@ def phase_kernels_siloed(ck: Checker, quick: bool) -> dict:
         return x, w, co
 
     # -- ragged shapes: m not a multiple of the slice height, d in
-    #    {6, 24, 3073}, C in {1, 10}, degrees 1 and 3
-    for (n, m, d, c, deg) in [(3, 13, 6, 1, 1), (5, 13, 24, 10, 3),
-                              (5, 37, 3073, 1, 3), (2, 130, 3073, 10, 1),
-                              (1, 1, 6, 1, 1), (4, 2049, 24, 1, 3)]:
-        check_cg(f"N={n} m={m} d={d} C={c} degree {deg}", n, m, d, c, deg)
+    #    {6, 24, 29, 3073, 4000, 40000}, C in {1, 10}, degrees 1 and 3;
+    #    the three accumulator modes, clients 4 bytes off a 16-byte line,
+    #    bm = 7 and 3, m below one slice, X~ sizes not a multiple of 16
+    #    bytes, and an X~ that starts 4 bytes off (offset 1 word)
+    for (n, m, d, c, deg, off) in [
+            (3, 13, 6, 1, 1, 0), (5, 13, 24, 10, 3, 0),
+            (5, 37, 3073, 1, 3, 0), (2, 130, 3073, 10, 1, 0),
+            (1, 1, 6, 1, 1, 0), (4, 2049, 24, 1, 3, 0),
+            (3, 37, 29, 1, 1, 0), (4, 45, 4000, 1, 1, 0),
+            (2, 19, 3073, 10, 3, 0), (2, 3, 40000, 1, 1, 0),
+            (3, 3, 24, 1, 1, 0), (5, 37, 3073, 1, 1, 1),
+            (3, 37, 29, 10, 3, 3)]:
+        check_cg(f"N={n} m={m} d={d} C={c} degree {deg} offset {off}",
+                 n, m, d, c, deg, off)
+    # x = w = p - 1 past d = 32768: pass 1's lane sums pass 2^58
+    check_cg("N=2 m=3 d=40000 C=1 x = w = p - 1", 2, 3, 40000, 1, 1,
+             worst=True)
     for (shape, deg) in [((45,), 1), ((7, 13), 3), ((4099,), 3), ((1,), 1)]:
         z, co = ck.field(*shape), ck.field(deg + 1)
         ck.compare("poly_eval", fp.poly_eval(z, co),
@@ -488,8 +738,10 @@ def phase_kernels_siloed(ck: Checker, quick: bool) -> dict:
         pl_ = ck.time_ms(lambda: getattr(ref, name)(*args), 2)
         bb_, by_ = bound(4.0 * (n * m * d + 2 * n * d * c + 2),
                          4.0 * n * m * d * c)
+        dev_ = device_ms(torch, lambda: getattr(cg, name)(*args), 20)
         rec = dict(shape=f"N={n} m={m} d={d} C={c}", ms=ms_, plain_ms=pl_,
-                   bound_ms=bb_, bound_by=by_)
+                   bound_ms=bb_, bound_by=by_, device_ms=dev_,
+                   plan=grad_label(n, m, d, c))
         ck.rows.append(dict(kernel=name, what=label, **rec))
         rows.setdefault(name, rec)
         del x, w, co, args
@@ -545,7 +797,7 @@ def phase_golden_siloed(np) -> None:
 
 
 def fit_full(ck: Checker, mode: str, record=(), faults=None,
-             workload=None) -> tuple:
+             workload=None, shape_log=None) -> tuple:
     """api.fit(workload, iters=FULL_ITERS) on the card on schedule `mode`,
     with the launch counts reset just before and read just after; the
     arguments of every call to the ops entries named in `record` are kept.
@@ -573,8 +825,13 @@ def fit_full(ck: Checker, mode: str, record=(), faults=None,
         setattr(ops, name, spy(name))
     try:
         ops.reset_launches()
-        res = api.fit(wl, "copml", "jit", key=0, iters=FULL_ITERS,
-                      faults=faults, device="cuda")
+        if shape_log is None:
+            res = api.fit(wl, "copml", "jit", key=0, iters=FULL_ITERS,
+                          faults=faults, device="cuda")
+        else:
+            with shape_log:
+                res = api.fit(wl, "copml", "jit", key=0, iters=FULL_ITERS,
+                              faults=faults, device="cuda")
         counts = ops.launch_counts()
     finally:
         for name in record:
@@ -603,8 +860,9 @@ def phase_siloed(ck: Checker, np, fused) -> tuple:
     from repro_torch import api
     from repro_torch.kernels import coded_gradient as cg
     from repro_torch.kernels import ref
+    shapes = ShapeLog()
     res, counts, calls, peak = fit_full(
-        ck, "0", record=("coded_gradient_batched",))
+        ck, "0", record=("coded_gradient_batched",), shape_log=shapes)
     assert counts["coded_gradient_batched"] == FULL_ITERS, counts
     assert counts["fused_step"] == 0, counts
     for name in SILOED_PATH:
@@ -615,6 +873,8 @@ def phase_siloed(ck: Checker, np, fused) -> tuple:
                f"{res.workload} siloed last step")
     same_model(np, res, fused, "siloed vs fused full-width run")
     summary = run_summary(res, counts, peak)
+    summary["gemm_shapes"] = gemm_table(ck, shapes, FULL_ITERS)
+    log_gemm_table("siloed", summary["gemm_shapes"])
     set_schedule("0")                      # the siloed run's driver
     proto = api.protocols.driver(api.get_workload(FULL_WORKLOAD),
                                  ck.torch.device("cuda"))
@@ -688,10 +948,88 @@ def phase_faulty(ck: Checker, np, fused) -> dict:
     return out
 
 
+# (label, kernel, A or x shape, B or W shape, C): the redesigned kernels at
+# the main path's shapes, for --compare (cifar10_case2: N=50, mk=902,
+# d=3073, K=10, T=7)
+COMPARE_SHAPES = [
+    ("fused_step", "fused_step", (50, 902, 3073), None, 1),
+    ("fused_step C=10", "fused_step", (50, 902, 3073), None, 10),
+    ("coded_gradient_batched", "coded_gradient_batched", (50, 902, 3073),
+     None, 1),
+    ("coded_gradient_matrix C=10", "coded_gradient_matrix", (50, 902, 3073),
+     None, 10),
+    ("share X (setup)", "modmatmul", (50, 7), (7, 27715387), 0),
+    ("LCC encode (setup, x8)", "modmatmul", (50, 17), (17, 2771846), 0),
+    ("reconstruct coded X (setup)", "modmatmul", (1, 8), (8, 138592300), 0),
+    ("share (per step)", "modmatmul", (50, 7), (7, 153650), 0),
+    ("model encode (per step)", "modmatmul_batched", (50, 50, 17),
+     (50, 17, 3073), 0),
+    ("X^T y (setup, tiled in both)", "modmatmul_batched", (50, 3073, 9019),
+     (50, 9019, 1), 0),
+]
+
+
+def time_only(src: str) -> dict:
+    """Device ms of the redesigned kernels, imported from `src` (this
+    checkout's src/, or another checkout's for --compare), at
+    COMPARE_SHAPES."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, src)
+    from repro_torch.core.field import P
+    from repro_torch.kernels import build
+    from repro_torch.kernels import coded_gradient as cg
+    from repro_torch.kernels import fused_step as fs
+    from repro_torch.kernels import modmatmul as mm
+    build.build_all()
+    ck = Checker(torch, np, P)
+    out = {}
+    for label, name, ashape, bshape, c in COMPARE_SHAPES:
+        if name == "fused_step":
+            n, m, d = ashape
+            ops_ = fused_operands(ck, n, m, d, c, 1)
+            fn = (lambda o: lambda: fs.fused_step(*o["args"], **o["kw"]))(ops_)
+        elif name.startswith("coded_gradient"):
+            n, m, d = ashape
+            x, w, co = ck.field(n, m, d), ck.field(n, d, c), ck.field(2)
+            args = (x, w[..., 0], co) if c == 1 else (x, w, co)
+            fn = (lambda f, a: lambda: f(*a))(getattr(cg, name), args)
+        else:
+            a = ck.field(*ashape)
+            b = ck.field(*bshape)
+            if "X^T y" in label:
+                a = ck.field(ashape[0], ashape[2], ashape[1]).transpose(1, 2)
+            elif name == "modmatmul_batched":
+                a = ck.field(*ashape[1:])[None].expand(*ashape)
+            fn = (lambda f, a_, b_: lambda: f(a_, b_))(getattr(mm, name), a, b)
+        out[label] = device_ms(torch, fn, 5 if "X" in label else 20)
+        fn = None
+        torch.cuda.empty_cache()
+    return out
+
+
+def compare(parent_src: str) -> dict:
+    """The parent checkout's kernels and this one's, each in its own
+    process, in turns parent, change, change, parent on one card."""
+    runs = []
+    for who, src in (("parent", parent_src), ("change", str(REPO / "src")),
+                     ("change", str(REPO / "src")), ("parent", parent_src)):
+        res = subprocess.run([sys.executable, __file__, "--time-only", src],
+                             capture_output=True, text=True, check=True)
+        runs.append(dict(who=who, ms=json.loads(res.stdout.splitlines()[-1])))
+        log(f"compare: {who} {runs[-1]['ms']}")
+    return {"turns": runs}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--quick", action="store_true",
                         help="build, ragged kernel checks and goldens only")
+    parser.add_argument("--compare", metavar="PARENT_SRC",
+                        help="time the redesigned kernels of PARENT_SRC "
+                             "(another checkout's src/) and of this one in "
+                             "turns, and stop")
+    parser.add_argument("--time-only", metavar="SRC", help=argparse.SUPPRESS)
     args = parser.parse_args()
     import numpy as np
     import torch
@@ -699,6 +1037,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs the port on "
               "the card", file=sys.stderr)
         return 2
+    if args.time_only:
+        print(json.dumps(time_only(args.time_only)))
+        return 0
+    if args.compare:
+        res = compare(args.compare)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "compare.json").write_text(json.dumps(res, indent=1))
+        return 0
     sys.path.insert(0, str(REPO / "src"))
     from repro_torch.core.field import P
     from repro_torch.kernels import build
@@ -749,6 +1095,7 @@ def main() -> int:
             path=path[name],
             max_abs_err=ck.max_err[name], equal=ck.max_err[name] == 0,
             checks=ck.checks[name], shape=r.get("shape"), ms=r.get("ms"),
+            device_ms=r.get("device_ms"),
             plain_ms=r.get("plain_ms"), bound_ms=r.get("bound_ms"),
             bound_by=r.get("bound_by"), library_ms=None))
     report["kernels"] = kernels

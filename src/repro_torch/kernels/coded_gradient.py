@@ -6,18 +6,20 @@ src/repro/kernels/coded_gradient.py: f[n] = X~[n]^T ghat(X~[n] W~[n]), the
 COPML hot loop of the siloed schedule.  The TPU walks a sequential
 (client, row block) grid and revisits the output block in VMEM; Hopper
 blocks run in parallel, so the gradient kernel (csrc/coded_gradient.cuh,
-the same body the fused step runs) stages each (bm, d) slice of X~ in
-shared memory once for both z = X~ W~ and X~^T ghat(z), adds its reduced
-partials to a uint64 accumulator with integer atomics, and a second kernel
-writes the accumulator mod p.  The three entries below are views of that
-one launch: a (d,) model is C = 1, the single-client form N = 1.
+the same body the fused step runs) is persistent: each CTA walks a strip
+of (bm, d) slices of X~ that a ring of bulk copies brings into shared
+memory one slice ahead, uses each slice for both z = X~ W~ and
+X~^T ghat(z), and adds its partials to a uint64 accumulator once per
+client; a second kernel writes the accumulator mod p.  The three entries
+below are views of that one launch: a (d,) model is C = 1, the
+single-client form N = 1.
 
 Bound on an H100: reading X~ once, N * m * d * 4 bytes over 3.35 TB/s
-(554 MB, ~0.17 ms at cifar10_case2, for C = 1 and C = 10 alike).  The
-slice height bm is the largest that keeps a block's shared memory near
-100 KB, so two blocks share an SM and one block's loads overlap the other's
-arithmetic.  One row of X~ must fit a block's shared memory: d + C above
-~58 K raises (the TPU kernel chunks d instead).
+(554 MB, ~0.17 ms at cifar10_case2, for C = 1 and C = 10 alike).  Every
+launch parameter comes from `launch_args` (kernels/plan.py's
+gradient_plan and strip_run): bm = 8 and two ~98 KB stages at d = 3073,
+C = 1, one strip per resident CTA.  One row of X~ must fit a block's
+shared memory: d above ~58 K raises (the TPU kernel chunks d instead).
 """
 
 from __future__ import annotations
@@ -27,12 +29,12 @@ import ctypes
 import torch
 
 from . import build
+from .plan import MAX_DEGREE, gradient_plan, strip_run
 
-SMEM_TARGET = 100 * 1024       # bytes of X~ slice per block
-SMEM_MAX = 227 * 1024          # an H100 block's dynamic shared memory
-MAX_BM = 64                    # rows per block: pass-2 sums of <= 64 terms
+MODES = {"reg": 0, "smem": 1, "atomic": 2}     # csrc GradMode
 
 _FN = None
+_SLOTS: dict = {}       # (library, ept, C == 1, smem) -> resident CTAs
 
 
 def _fn():
@@ -40,20 +42,42 @@ def _fn():
     if _FN is None:
         fn = build.load("coded_gradient").repro_coded_gradient
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
+                       + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
 
 
-def pick_bm(d: int, c: int) -> int:
-    """Rows of X~ per block: as many as fit SMEM_TARGET, at least 1."""
-    bm = max(1, min(MAX_BM, SMEM_TARGET // (4 * (d + c))))
-    if 4 * bm * (d + c) > SMEM_MAX:
-        raise ValueError(f"coded gradient: d={d}, C={c} does not fit one "
-                         f"row of X~ in shared memory")
-    return bm
+def _slots(lib: str, ept: int, c: int, smem: int) -> int:
+    """Resident CTAs of the gradient kernel's instance in library `lib`
+    (csrc/coded_gradient.cuh grad_slots), asked once per instance and
+    shared-memory size."""
+    key = (lib, ept, c == 1, smem)
+    if key not in _SLOTS:
+        fn = getattr(build.load(lib), f"repro_{lib}_slots")
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        slots = ctypes.c_int(0)
+        err = fn(ept, c, smem, ctypes.byref(slots))
+        if err:
+            raise RuntimeError(f"{lib}: gradient kernel occupancy query "
+                               f"failed: CUDA error {err}")
+        _SLOTS[key] = slots.value
+    return _SLOTS[key]
+
+
+def plan_args(lib: str, nb: int, m: int, d: int, c: int) -> tuple:
+    """(bm, stages, mode, ept, sbytes, smem, run, ctas): every launch
+    parameter of the gradient kernel in library `lib` ("coded_gradient"
+    or "fused_step"), from plan.gradient_plan and plan.strip_run."""
+    pl = gradient_plan(m, d, c)               # cached: one plan per shape
+    slots = _slots(lib, pl["ept"], c, pl["smem"])
+    run, ctas = strip_run(nb * -(-m // pl["bm"]), slots)
+    return (pl["bm"], pl["stages"], MODES[pl["mode"]], pl["ept"],
+            pl["sbytes"], pl["smem"], run, ctas)
 
 
 def coded_gradient_matrix(x, w, coeffs):
@@ -66,7 +90,8 @@ def coded_gradient_matrix(x, w, coeffs):
                          f"{tuple(coeffs.shape)}")
     nb, m, d = x.shape
     c = w.shape[2]
-    if tuple(w.shape[:2]) != (nb, d) or coeffs.shape[0] < 1:
+    if tuple(w.shape[:2]) != (nb, d) or not 1 <= coeffs.shape[0] <= \
+            MAX_DEGREE + 1:
         raise ValueError(f"coded gradient: shapes x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, coeffs {tuple(coeffs.shape)}")
     for name, t in (("x", x), ("w", w), ("coeffs", coeffs)):
@@ -86,11 +111,12 @@ def coded_gradient_matrix(x, w, coeffs):
         return f
     if m == 0:
         return f.zero_()
-    bm = pick_bm(d, c)
+    plan = plan_args("coded_gradient", nb, m, d, c)
     facc = torch.zeros((nb, d, c), dtype=torch.int64, device=x.device)
-    err = _fn()(x.data_ptr(), w.data_ptr(), coeffs.data_ptr(),
+    wt = w.transpose(1, 2).contiguous()          # class-major: a view at C=1
+    err = _fn()(x.data_ptr(), wt.data_ptr(), coeffs.data_ptr(),
                 coeffs.shape[0] - 1, facc.data_ptr(), f.data_ptr(), nb, m, d,
-                c, bm, torch.cuda.current_stream(x.device).cuda_stream)
+                c, *plan, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"coded_gradient kernel launch failed: CUDA error "
                            f"{err}")

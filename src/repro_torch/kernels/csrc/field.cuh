@@ -1,6 +1,16 @@
 // F_p arithmetic on canonical uint32 values in [0, p), p = 2^26 - 5, shared
 // by the port's kernels.  A product of two elements is < 2^52, so a uint64
-// sum of up to 2048 of them (plus a partial < p) stays below 2^64.
+// sum of up to 4096 of them stays below 2^64 (kNoReduceTerms, reduced with
+// reduce_p) and a sum of up to 64 below 2^58 (kNoReduce58Terms, reduced
+// with the cheaper reduce_p58).
+//
+// reduce_p replaces the 64-bit `% p` (a long subroutine on the CUDA cores)
+// with the pseudo-Mersenne form: 2^26 = 5 (mod p), so
+//   x -> (x mod 2^26) + 5 * (x >> 26)
+// leaves x below 2^41 after one fold of a uint64, below 2^27 after a
+// second (done in 32 bits), below 2^26 + 5 after a third, and one
+// conditional subtract lands in [0, p).  kernels/plan.py holds a numpy copy
+// that the CPU tests check against `%`.
 //
 // Everything here has internal linkage: each kernel source compiles into
 // its own shared library and carries its own copy.
@@ -13,6 +23,39 @@
 namespace {
 
 constexpr uint64_t kP = 67108859ull;
+constexpr uint32_t kMask26 = (1u << 26) - 1u;
+constexpr int kNoReduceTerms = 4096;   // products < 2^52 a uint64 sum holds
+constexpr int kNoReduce58Terms = 64;   // products a sum below 2^58 holds
+
+__device__ __forceinline__ uint32_t reduce_p(uint64_t x) {
+  const uint64_t y = (x & kMask26) + 5ull * (x >> 26);          // < 2^41
+  const uint32_t z = ((uint32_t)y & kMask26) + 5u * (uint32_t)(y >> 26);
+  const uint32_t v = (z & kMask26) + 5u * (z >> 26);            // < 2^26 + 5
+  return v >= (uint32_t)kP ? v - (uint32_t)kP : v;
+}
+
+// (hi, lo) += a * b for 32-bit a, b through PTX's carry chain.  ptxas
+// emits the same IMAD.WIDE.U32 as for a uint64 sum, but on an H100 the
+// gradient kernel ran faster written this way (coded_gradient_matrix at
+// C = 10: 2.33 against 2.79 ms with uint64 sums; PERF.md).
+__device__ __forceinline__ void mac_wide(uint32_t& lo, uint32_t& hi,
+                                         uint32_t a, uint32_t b) {
+  asm("mad.lo.cc.u32 %0, %2, %3, %0;\n\tmadc.hi.u32 %1, %2, %3, %1;"
+      : "+r"(lo), "+r"(hi) : "r"(a), "r"(b));
+}
+
+__device__ __forceinline__ uint64_t wide(uint32_t lo, uint32_t hi) {
+  return ((uint64_t)hi << 32) | lo;
+}
+
+// reduce_p for x < 2^58 (a sum of at most kNoReduce58Terms products):
+// x >> 26 fits 32 bits and two folds land below 2p.  Wrong, with no error,
+// for larger x: callers bound their term counts by kNoReduce58Terms.
+__device__ __forceinline__ uint32_t reduce_p58(uint64_t x) {
+  const uint64_t y = ((uint32_t)x & kMask26) + 5ull * (uint32_t)(x >> 26);
+  const uint32_t z = ((uint32_t)y & kMask26) + 5u * (uint32_t)(y >> 26);
+  return z >= (uint32_t)kP ? z - (uint32_t)kP : z;
+}
 
 __device__ __forceinline__ uint32_t addp(uint32_t a, uint32_t b) {
   uint32_t s = a + b;
@@ -24,7 +67,7 @@ __device__ __forceinline__ uint32_t subp(uint32_t a, uint32_t b) {
 }
 
 __device__ __forceinline__ uint32_t mulp(uint32_t a, uint32_t b) {
-  return (uint32_t)(((uint64_t)a * b) % kP);
+  return reduce_p((uint64_t)a * b);
 }
 
 // ghat(z) = sum_t coeffs[t] z^t by Horner, lowest degree first.

@@ -6,30 +6,34 @@
 // protocol epilogue runs at the last grid step.  Hopper runs blocks in
 // parallel and in no order, so the step is two kernels:
 //
-//   coded_grad_kernel    (coded_gradient.cuh) grid (row blocks, clients).
-//                        A block stages its (bm, d) slice of X~[n] in
-//                        shared memory ONCE and uses it for both z = X~ W~
-//                        and f[n] += X~^T ghat(z); reduced partials go to a
-//                        uint64 (N, d, C) accumulator by integer atomicAdd.
-//   fused_epilogue_kernel  one thread per model element (j, c):
+//   coded_grad_kernel    (coded_gradient.cuh) persistent CTAs walk strips
+//                        of X~ slices through a ring filled by
+//                        cp.async.bulk; each slice is used for both
+//                        z = X~ W~ and f[n] += X~^T ghat(z); partials go to a
+//                        uint64 (N, d, C) accumulator once per client a
+//                        strip touches.
+//   fused_epilogue_kernel  a block per 32 model elements, 8 warps over the
+//                          N clients / holders (coalesced rows of the (N, L)
+//                          operands, shared-memory sums across warps):
 //                          f = acc mod p (written out), common =
-//                          sum_n dfull[n] * (f[n] + adv_off[n]); then for
-//                          every holder h: xtg, grad, * q_eta, + radd; the
-//                          masked open c = sum_h rvec[h] * c_sh[h], its low
-//                          k1 bits minus r0sh, * inv(2^k1), w' = wsh - delta.
+//                          sum_n dfull[n] * (f[n] + adv_off[n]); for every
+//                          holder h: xtg, grad, * q_eta, + radd; the masked
+//                          open c = sum_h rvec[h] * c_sh[h], its low k1 bits
+//                          minus r0sh, * inv(2^k1), w' = wsh - delta.
 //
 // Bound on an H100: reading X~ once (N * m * d * 4 bytes, 554 MB at the
-// paper's cifar10_case2 shape) over 3.35 TB/s, ~0.17 ms; the MACs (2 per
-// X~ element and class) are far below the integer rate.  Every sum is of
-// canonical values < p and products < 2^52, bounded well inside uint64.
+// paper's cifar10_case2 shape) over 3.35 TB/s, ~0.17 ms; the epilogue's
+// ~6 MB add ~2 us.  Every sum is of canonical values < p and products
+// < 2^52, bounded well inside uint64, and reduced with reduce_p.
 
 #include "coded_gradient.cuh"
 
 namespace {
 
-constexpr int kEpiThreads = 256;
+constexpr int kEpiLanes = 32;
+constexpr int kEpiWarps = 8;
 
-__global__ void __launch_bounds__(kEpiThreads)
+__global__ void __launch_bounds__(kEpiLanes * kEpiWarps)
 fused_epilogue_kernel(const unsigned long long* __restrict__ facc,
                       const int32_t* __restrict__ adv_off,
                       const int32_t* __restrict__ dfull,
@@ -42,40 +46,69 @@ fused_epilogue_kernel(const unsigned long long* __restrict__ facc,
                       int32_t* __restrict__ f_out, int32_t* __restrict__ w_out,
                       int N, int64_t L, uint32_t q_eta, uint32_t inv2k1,
                       int k1) {
-  const int64_t e = (int64_t)blockIdx.x * kEpiThreads + threadIdx.x;
-  if (e >= L) return;
+  __shared__ uint32_t red[kEpiWarps][kEpiLanes];
+  const int lane = threadIdx.x % kEpiLanes, warp = threadIdx.x / kEpiLanes;
+  const int64_t e = (int64_t)blockIdx.x * kEpiLanes + lane;
+  const bool ok = e < L;
 
-  uint64_t common = 0;                      // N <= 1024 terms < 2^52
-  for (int n = 0; n < N; ++n) {
-    const uint32_t f = (uint32_t)(facc[n * L + e] % kP);
-    f_out[n * L + e] = (int32_t)f;
-    common += (uint64_t)addp(f, (uint32_t)adv_off[n]) * (uint32_t)dfull[n];
+  // common = sum_n dfull[n] * (f[n] + adv_off[n]); N / 8 <= 128 terms a warp
+  uint64_t common = 0;
+  if (ok) {
+    for (int n = warp; n < N; n += kEpiWarps) {
+      const uint32_t f = reduce_p(facc[n * L + e]);
+      f_out[n * L + e] = (int32_t)f;
+      common += (uint64_t)addp(f, (uint32_t)adv_off[n]) * (uint32_t)dfull[n];
+    }
   }
-  const uint32_t com = (uint32_t)(common % kP);
+  red[warp][lane] = reduce_p(common);
+  __syncthreads();
+  uint32_t sum = 0;
+#pragma unroll
+  for (int w = 0; w < kEpiWarps; ++w) sum += red[w][lane];   // < 8p
+  const uint32_t com = reduce_p(sum);
+  __syncthreads();
 
   uint64_t copen = 0;
-  for (int h = 0; h < N; ++h) {
-    const uint32_t xtg = addp((uint32_t)base[h * L + e], com);
-    const uint32_t scaled = mulp(subp(xtg, (uint32_t)xty[h * L + e]), q_eta);
-    const uint32_t c_sh = addp(scaled, (uint32_t)radd[h * L + e]);
-    copen += (uint64_t)(uint32_t)rvec[h] * c_sh;
+  if (ok) {
+    for (int h = warp; h < N; h += kEpiWarps) {
+      const uint32_t xtg = addp((uint32_t)base[h * L + e], com);
+      const uint32_t scaled = mulp(subp(xtg, (uint32_t)xty[h * L + e]), q_eta);
+      const uint32_t c_sh = addp(scaled, (uint32_t)radd[h * L + e]);
+      copen += (uint64_t)(uint32_t)rvec[h] * c_sh;
+    }
   }
-  const uint32_t c0 = (uint32_t)(copen % kP) & ((1u << k1) - 1u);
+  red[warp][lane] = reduce_p(copen);
+  __syncthreads();
+  sum = 0;
+#pragma unroll
+  for (int w = 0; w < kEpiWarps; ++w) sum += red[w][lane];
+  const uint32_t c0 = reduce_p(sum) & ((1u << k1) - 1u);
 
-  for (int h = 0; h < N; ++h) {
-    const uint32_t xtg = addp((uint32_t)base[h * L + e], com);
-    const uint32_t scaled = mulp(subp(xtg, (uint32_t)xty[h * L + e]), q_eta);
-    const uint32_t a0 = subp(c0, (uint32_t)r0sh[h * L + e]);
-    const uint32_t delta = mulp(subp(scaled, a0), inv2k1);
-    w_out[h * L + e] = (int32_t)subp((uint32_t)wsh[h * L + e], delta);
+  if (ok) {
+    for (int h = warp; h < N; h += kEpiWarps) {
+      const uint32_t xtg = addp((uint32_t)base[h * L + e], com);
+      const uint32_t scaled = mulp(subp(xtg, (uint32_t)xty[h * L + e]), q_eta);
+      const uint32_t a0 = subp(c0, (uint32_t)r0sh[h * L + e]);
+      const uint32_t delta = mulp(subp(scaled, a0), inv2k1);
+      w_out[h * L + e] = (int32_t)subp((uint32_t)wsh[h * L + e], delta);
+    }
   }
 }
 
 }  // namespace
 
+// Resident CTAs of the gradient kernel's (ept, C) instance at `smem` bytes
+// (coded_gradient.cuh grad_slots), into *slots.  Returns a cudaError_t.
+extern "C" int repro_fused_step_slots(int ept, int C, int64_t smem,
+                                      int* slots) {
+  return static_cast<int>(grad_slots(ept, C, (size_t)smem, slots));
+}
+
 // facc must be a zeroed (N, d, C) uint64 buffer; every other operand is
-// contiguous int32 in [0, p) (see src/repro_torch/kernels/fused_step.py).
-// Returns cudaGetLastError() after both launches (0 = success).
+// contiguous int32 in [0, p) (see src/repro_torch/kernels/fused_step.py);
+// w is W~ class-major (N, C, d); bm, stages, mode, ept, sbytes, smem, run
+// and ctas are kernels/coded_gradient.py launch_args'.  Returns
+// cudaGetLastError() after both launches (0 = success).
 extern "C" int repro_fused_step(const void* x, const void* w,
                                 const void* coeffs, int degree,
                                 const void* adv_off, const void* dfull,
@@ -83,17 +116,22 @@ extern "C" int repro_fused_step(const void* x, const void* w,
                                 const void* xty, const void* wsh,
                                 const void* radd, const void* r0sh,
                                 void* facc, void* f_out, void* w_out, int N,
-                                int m, int d, int C, int bm, int64_t q_eta,
-                                int64_t inv2k1, int k1, void* stream) {
+                                int m, int d, int C, int bm, int stages,
+                                int mode, int ept, int64_t sbytes,
+                                int64_t smem, int run, int ctas,
+                                int64_t q_eta, int64_t inv2k1, int k1,
+                                void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_coded_grad(
-      static_cast<const int32_t*>(x), static_cast<const int32_t*>(w),
-      static_cast<const int32_t*>(coeffs), degree,
-      static_cast<unsigned long long*>(facc), N, m, d, C, bm, s);
+  const GradArgs ga{static_cast<const int32_t*>(x),
+                    static_cast<const int32_t*>(w),
+                    static_cast<const int32_t*>(coeffs),
+                    static_cast<unsigned long long*>(facc),
+                    degree, N, m, d, C, bm, stages, mode, sbytes, run};
+  cudaError_t err = launch_coded_grad(ga, ept, (size_t)smem, ctas, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t L = (int64_t)d * C;
-  const unsigned epi_blocks = (unsigned)((L + kEpiThreads - 1) / kEpiThreads);
-  fused_epilogue_kernel<<<epi_blocks, kEpiThreads, 0, s>>>(
+  const unsigned epi_blocks = (unsigned)((L + kEpiLanes - 1) / kEpiLanes);
+  fused_epilogue_kernel<<<epi_blocks, kEpiLanes * kEpiWarps, 0, s>>>(
       static_cast<const unsigned long long*>(facc),
       static_cast<const int32_t*>(adv_off), static_cast<const int32_t*>(dfull),
       static_cast<const int32_t*>(rvec), static_cast<const int32_t*>(base),

@@ -3,19 +3,18 @@
 Replaces the TPU kernel `fused_step` of src/repro/kernels/fused_step.py:
 one whole Phase 3+4 step after the model encode.  The TPU walks its
 (client, row block) grid in order and carries f and the decode fold in
-VMEM; Hopper blocks run in parallel, so the step is a gradient kernel over
-(row block, client) -- the coded-gradient kernel of csrc/coded_gradient.cuh,
-which stages each (bm, d) slice of X~ in shared memory once for both
-z = X~ W~ and X~^T ghat(z) and adds its partials to a uint64 accumulator
-with integer atomics (exact, order-independent) -- followed by an
-epilogue kernel with one thread per model element (decode fold, gradient,
+VMEM; Hopper blocks run in parallel, so the step is the persistent
+gradient kernel of csrc/coded_gradient.cuh (a ring of bulk-copied X~
+slices, each used for both z = X~ W~ and X~^T ghat(z), partials added to
+a uint64 accumulator with integer atomics once per client a strip
+touches: exact, order-independent) followed by an epilogue kernel, a block
+per 32 model elements with warps over the clients (decode fold, gradient,
 q_eta scale, TruncPr masked open and rescale, model update).
 
 Bound on an H100: reading X~ once, N * m * d * 4 bytes over 3.35 TB/s
 (554 MB, ~0.17 ms at cifar10_case2); everything else is < 1% of the bytes.
-The slice height bm is the largest that keeps a block's shared memory near
-100 KB, so two blocks share an SM and one block's loads overlap the other's
-arithmetic.
+The gradient kernel's launch parameters (slice height, ring, accumulator
+mode, strips) are kernels/coded_gradient.py plan_args'.
 """
 
 from __future__ import annotations
@@ -25,8 +24,9 @@ import ctypes
 import torch
 
 from . import build
-from .coded_gradient import pick_bm
+from .coded_gradient import plan_args
 from ..core.field import P
+from .plan import MAX_DEGREE
 
 _FN = None
 
@@ -36,7 +36,8 @@ def _fn():
     if _FN is None:
         fn = build.load("fused_step").repro_fused_step
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
-                       + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                       + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
                        + [ctypes.c_int64] * 2 + [ctypes.c_int]
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -65,19 +66,21 @@ def fused_step(x, w, coeffs, adv_off, dfull, rvec, base, xty, wsh, radd,
                              f"operand must be on one cuda device")
         if not t.is_contiguous():
             raise ValueError(f"fused_step: {name} must be contiguous")
-    if not (1 <= nb <= 1024 and coeffs.shape[0] >= 1 and 0 < k1 < 26):
-        raise ValueError(f"fused_step: N={nb} (1..1024), degree "
+    if not (1 <= nb <= 1024 and m >= 1
+            and 1 <= coeffs.shape[0] <= MAX_DEGREE + 1 and 0 < k1 < 26):
+        raise ValueError(f"fused_step: N={nb} (1..1024), m={m} (>= 1), degree "
                          f"{coeffs.shape[0] - 1}, k1={k1}")
-    bm = pick_bm(d, c)
+    plan = plan_args("fused_step", nb, m, d, c)
     facc = torch.zeros((nb, d, c), dtype=torch.int64, device=x.device)
     f = torch.empty((nb, d, c), dtype=torch.int32, device=x.device)
     new_w = torch.empty_like(f)
-    err = _fn()(x.data_ptr(), w.data_ptr(), coeffs.data_ptr(),
+    wt = w.transpose(1, 2).contiguous()          # class-major: a view at C=1
+    err = _fn()(x.data_ptr(), wt.data_ptr(), coeffs.data_ptr(),
                 coeffs.shape[0] - 1, adv_off.data_ptr(), dfull.data_ptr(),
                 rvec.data_ptr(), base.data_ptr(), xty.data_ptr(),
                 wsh.data_ptr(), radd.data_ptr(), r0sh.data_ptr(),
                 facc.data_ptr(), f.data_ptr(), new_w.data_ptr(),
-                nb, m, d, c, bm, int(q_eta) % P, int(inv2k1) % P, k1,
+                nb, m, d, c, *plan, int(q_eta) % P, int(inv2k1) % P, k1,
                 torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err}")

@@ -3,25 +3,31 @@
 Replaces the TPU kernels `modmatmul` and `modmatmul_batched` of
 src/repro/kernels/modmatmul.py (7-bit limbs, 16 exact f32 MXU products,
 one Barrett reduce per block).  This version multiplies field elements
-directly in uint64 on the CUDA cores and reduces mod p every 2048 terms.
+directly in uint64 on the CUDA cores and reduces with the pseudo-Mersenne
+fold of csrc/field.cuh.
 
 Bound on an H100: the main path's GEMMs (Shamir share, LCC encode,
-reconstruct, X^T y, decode base) have small M or small K and huge N, so
-each moves ~4 bytes per input and output element for a few MACs: they are
-memory-bound at 3.35 TB/s.  The kernel reads operands through their strides
-(no transposed or broadcast copy is made) and masks ragged edges instead of
-padding them; its tile shape follows the GEMM's thin side.
+reconstruct, decode base) have M <= 64 and K <= 64 with a huge N, so each
+moves ~4 bytes per element of B and of C for a few MACs: memory-bound at
+3.35 TB/s.  They take the thin kernel (A staged whole, columns of B in
+registers, coalesced 4-byte rows); X^T y (K = 9019) and strided B operands
+take the tiled kernel, which reads operands through their strides and
+masks ragged edges.  kernels/plan.py makes every choice: gemm_path the
+kernel, thin_launch the thin kernel's instance and grid.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import build
+from .plan import gemm_path, thin_launch
 
 _FN = None
+_TILED = dict(kmax=0, cols=0, gx=0, groups=0, rpg=0)
 
 
 def _fn():
@@ -30,11 +36,16 @@ def _fn():
         fn = build.load("modmatmul").repro_modmatmul
         fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int64] * 3
                        + [ctypes.c_void_p] + [ctypes.c_int64] * 3
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] + [ctypes.c_int] * 9
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(a, b, batched: bool):
@@ -70,8 +81,11 @@ def modmatmul_batched(a, b):
         return out
     if k == 0:
         return out.zero_()
+    launch = (thin_launch(m, n, k, bsz, _sms(a.device.index))
+              if gemm_path(m, k, b.stride(2), n) == "thin" else _TILED)
     err = _fn()(a.data_ptr(), *a.stride(), b.data_ptr(), *b.stride(),
-                out.data_ptr(), bsz, m, n, k,
+                out.data_ptr(), bsz, m, n, k, launch["kmax"], launch["cols"],
+                launch["gx"], launch["groups"], launch["rpg"],
                 torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"modmatmul kernel launch failed: CUDA error {err}")

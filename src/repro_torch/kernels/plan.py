@@ -1,0 +1,215 @@
+"""The launchers' host-side choices, as pure functions of shapes and strides.
+
+Every launch parameter of the CUDA kernels is decided here, once, and
+passed to csrc/ by the launchers (csrc/ only checks them against the
+kernels' bounds), so the CPU tests reach the code that decides:
+
+- `gemm_path` / `thin_launch`: which modmatmul kernel a GEMM takes, and
+  the thin kernel's instance (`THIN_KMAX`) and grid;
+- `gradient_plan`, `stage_bytes`, `strip_run`: the gradient kernel's
+  accumulator mode, slice height, ring depth and stage size, shared
+  memory, and the strips its CTAs walk.
+
+It also holds numpy models of device code the CPU cannot run:
+`reduce_p` / `reduce_p58` (csrc/field.cuh's reductions mod p),
+`pass1_terms` (the products a lane of the gradient kernel's pass 1 sums
+before its one reduce) and `slice_copy` (the 16-byte peel of each slice's
+bulk copy).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+P = 67108859                        # 2^26 - 5
+MASK26 = (1 << 26) - 1
+NO_REDUCE_TERMS = 4096              # products < 2^52 that a uint64 sum holds
+NO_REDUCE58_TERMS = 64              # ... that a sum below 2^58 holds
+
+SMEM_MAX = 232448                   # an H100 block's dynamic shared memory
+THIN_MAX_M = 64
+THIN_MAX_K = NO_REDUCE58_TERMS      # one reduce_p58 an output
+THIN_THREADS = 256
+# (KMAX, COLS) of csrc/modmatmul.cu's thin_kernel instances, in order: K
+# itself for the main path's large GEMMs (7 share, 8 reconstruct, 17 LCC
+# encode), zero-padded buckets for every other K; COLS * KMAX <= 64
+# registers of B a thread
+THIN_KMAX = ((7, 4), (8, 4), (16, 4), (17, 2), (24, 2), (32, 2), (48, 1),
+             (64, 1))
+
+GRAD_THREADS = 512
+GRAD_WARPS = GRAD_THREADS // 32
+REG_EPT = (1, 2, 4, 8)              # register partials a thread may keep
+MAX_BM = NO_REDUCE58_TERMS          # pass 2 sums a slice with reduce_p58
+MAX_DEGREE = 63                     # ghat's coefficients: static smem
+GRAD_STATIC = 4 * (MAX_DEGREE + 1)  # static shared memory of the kernel
+BAR_BYTES = 64                      # the ring's mbarriers, at the front
+COPY_SLACK = 32                     # a slice rounded out to 16-byte ends
+
+
+def reduce_p58(x) -> np.ndarray:
+    """x mod p for uint64 x < 2^58 by two folds and one conditional
+    subtract (csrc/field.cuh reduce_p58)."""
+    x = np.asarray(x, dtype=np.uint64)
+    assert (x < np.uint64(1 << 58)).all()
+    y = (x & np.uint64(MASK26)) + np.uint64(5) * (x >> np.uint64(26))
+    z = (y & np.uint64(MASK26)) + np.uint64(5) * (y >> np.uint64(26))
+    assert (z < np.uint64(2 * P)).all()
+    return np.where(z >= np.uint64(P), z - np.uint64(P), z)
+
+
+def reduce_p(x) -> np.ndarray:
+    """x mod p for uint64 x by three pseudo-Mersenne folds (2^26 = 5 mod
+    p) and one conditional subtract, exactly as csrc/field.cuh does it."""
+    x = np.asarray(x, dtype=np.uint64)
+    y = (x & np.uint64(MASK26)) + np.uint64(5) * (x >> np.uint64(26))
+    y32 = y.astype(np.uint32)                                   # y < 2^41
+    z = (y32 & np.uint32(MASK26)) + np.uint32(5) * (
+        y >> np.uint64(26)).astype(np.uint32)
+    v = (z & np.uint32(MASK26)) + np.uint32(5) * (z >> np.uint32(26))
+    return np.where(v >= np.uint32(P), v - np.uint32(P), v).astype(np.uint64)
+
+
+# ---------------------------------------------------------------- modmatmul
+
+def gemm_path(m: int, k: int, b_col_stride: int, n: int = 2) -> str:
+    """"thin" (csrc/modmatmul.cu thin_kernel: A staged whole, columns of
+    B in registers) when M <= 64, 1 <= K <= 64 and B's columns are unit
+    stride; else "tiled" (the BM x BN tile kernel, any strides)."""
+    unit = b_col_stride == 1 or n == 1
+    if m <= THIN_MAX_M and 1 <= k <= THIN_MAX_K and unit:
+        return "thin"
+    return "tiled"
+
+
+@functools.lru_cache(maxsize=None)
+def thin_launch(m: int, n: int, k: int, batch: int, sms: int) -> dict:
+    """How csrc/modmatmul.cu's thin_kernel runs a (batch, m, k) @ (batch,
+    k, n) GEMM on a card of `sms` SMs:
+
+    kmax, cols  its instance: the first of THIN_KMAX with K <= KMAX (A and
+                B zero-padded to KMAX), and the columns a thread holds;
+    gx          blocks over N (the kernel strides over the rest): enough
+                for N, at most ~16 blocks per SM over the batch;
+    groups, rpg the M output rows split into `groups` of `rpg` rows over
+                gridDim.z when the column blocks alone give the card fewer
+                than ~2 blocks per SM (the per-step GEMMs with N = 3073)."""
+    if not 1 <= k <= THIN_MAX_K:
+        raise ValueError(f"thin GEMM takes 1 <= K <= {THIN_MAX_K}, got {k}")
+    kmax, cols = next((km, c) for km, c in THIN_KMAX if k <= km)
+    gx = min(-(-n // (cols * THIN_THREADS)), -(-(sms * 16) // batch))
+    groups = min(m, max(1, -(-(2 * sms) // (gx * batch))))
+    rpg = -(-m // groups)
+    return dict(kmax=kmax, cols=cols, gx=gx, groups=-(-m // rpg), rpg=rpg)
+
+
+# ----------------------------------------------------------- coded gradient
+
+def _ceil16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def stage_bytes(bm: int, d: int) -> int:
+    """One ring stage: a (bm, d) slice rounded out to 16-byte ends."""
+    return _ceil16(4 * bm * d) + COPY_SLACK
+
+
+def grad_smem(bm: int, stages: int, d: int, c: int, part_smem: bool) -> int:
+    """Dynamic shared memory of the gradient kernel's layout
+    (csrc/coded_gradient.cuh coded_grad_kernel): barriers, the ring, z
+    partials of every warp, ghat(z) and, in the "smem" mode, the (d, C)
+    partials."""
+    return (BAR_BYTES + stages * stage_bytes(bm, d) + 4 * bm * c * GRAD_WARPS
+            + 4 * bm * c + (4 * d * c if part_smem else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def gradient_plan(m: int, d: int, c: int) -> dict:
+    """How the gradient kernel runs f[n] = X~[n]^T ghat(X~[n] W~[n]):
+
+    mode   "reg": a thread keeps the raw uint64 sums of its ept elements
+                  of (d, C) in registers across its whole strip;
+           "smem": reduced uint32 partials of (d, C) in shared memory;
+           "atomic": one atomicAdd per slice and element (d*C too large
+                  for either);
+    ept    register partials a thread keeps ("reg"; 0 otherwise);
+    bm     rows per slice, at most MAX_BM (a multiple of pass 1's 8-row
+           block at C = 1, of its 4-row block at C > 1, when one fits);
+    stages ring depth (2, or 1 when two slices do not fit);
+    sbytes one ring stage's bytes;
+    smem   dynamic shared memory bytes.
+    Raises where one row of X~ does not fit."""
+    el = d * c
+    ept = -(-el // GRAD_THREADS)
+    reg = next((e for e in REG_EPT if ept <= e), 0)
+    cap = max(1, min(MAX_BM, m))
+    for mode in (("reg",) if reg else ("smem", "atomic")):
+        part = mode == "smem"
+        for stages in (2, 1):
+            fits = [bm for bm in range(cap, 0, -1)
+                    if grad_smem(bm, stages, d, c, part) + GRAD_STATIC
+                    <= SMEM_MAX]
+            if fits:
+                bm = fits[0]
+                rb = 8 if c == 1 else 4      # pass 1's rows a lane sums
+                if bm >= rb:
+                    bm -= bm % rb
+                return dict(mode=mode, ept=reg, bm=bm, stages=stages,
+                            sbytes=stage_bytes(bm, d),
+                            smem=grad_smem(bm, stages, d, c, part))
+    raise ValueError(f"coded gradient: d={d}, C={c} does not fit one row "
+                     f"of X~ in shared memory")
+
+
+def max_d() -> int:
+    """The widest d (at C = 1) the gradient kernel takes."""
+    lo, hi = 1, 1 << 20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        try:
+            gradient_plan(1, mid, 1)
+            lo = mid
+        except ValueError:
+            hi = mid - 1
+    return lo
+
+
+def pass1_terms(d: int) -> int:
+    """Products one lane sums in pass 1 before its single reduce_p: its
+    share of the warp's 1/16 of d.  Must stay below NO_REDUCE_TERMS; it
+    passes NO_REDUCE58_TERMS above d = 32768, so pass 1 needs the full
+    reduce_p."""
+    return -(-(-(-d // GRAD_WARPS)) // 32)
+
+
+def strip_run(total: int, slots: int) -> tuple:
+    """(run, ctas): `total` slices (client-major, ceil(m / bm) a client)
+    cut into strips of `run` consecutive slices, one strip per persistent
+    CTA; `slots` is SMs x resident CTAs per SM.  CTA g walks slices
+    [g * run, min(total, (g + 1) * run)).  On an H100 strips beat shorter
+    runs dealt round-robin, whose extra flushes cost more than their
+    closer reads save."""
+    run = -(-total // slots)
+    return run, -(-total // run)
+
+
+def slice_copy(base: int, start: int, nbytes: int, total: int) -> dict:
+    """The bulk copy of one slice: `start`/`nbytes` are the slice's byte
+    offset and size in an int32 tensor of `total` bytes at address `base`.
+
+    The span is rounded out to 16-byte boundaries inside the tensor; the
+    body (16-byte aligned address and size) goes by cp.async.bulk, and the
+    words outside it -- only at the tensor's ragged ends -- by plain loads.
+    `lead` is the view's offset (bytes) into its shared-memory stage."""
+    a_s, a_e = base + start, base + start + nbytes
+    g0 = a_s // 16 * 16
+    lo = max(g0, _ceil16(base))
+    hi = min(_ceil16(a_e), (base + total) // 16 * 16)
+    if hi <= lo:
+        return dict(lead=a_s - g0, body_lo=lo, body_bytes=0,
+                    head_words=nbytes // 4, tail_words=0)
+    return dict(lead=a_s - g0, body_lo=lo, body_bytes=hi - lo,
+                head_words=max(0, lo - a_s) // 4,
+                tail_words=max(0, a_e - hi) // 4)

@@ -144,3 +144,80 @@ def test_faulty_fit_on_the_card(cuda, monkeypatch, mode):
                   faults=plan)
     assert _sha(res.state.w_shares.cpu().numpy()) == FAULTY_SHARES_SHA
     assert _sha(res.history, np.float32) == FAULTY_HIST_SHA
+
+
+@pytest.mark.parametrize("m,k", [(1, 1), (1, 8), (8, 7), (17, 17), (50, 7),
+                                 (50, 17), (64, 64), (1, 50), (65, 17),
+                                 (50, 65), (64, 1), (8, 64)])
+def test_modmatmul_thin_path_matches_plain(cuda, m, k):
+    """Every K bucket of the thin kernel and both sides of its M/K limits,
+    at an odd N whose rows start off 16-byte lines."""
+    from repro_torch.kernels.plan import gemm_path
+    rng = np.random.default_rng(m * 100 + k)
+    a, b = _fld(rng, m, k), _fld(rng, k, 2053)
+    want = "thin" if m <= 64 and k <= 64 else "tiled"
+    assert gemm_path(m, k, b.stride(1), 2053) == want
+    _eq(mm.modmatmul(a.to(cuda), b.to(cuda)), ref.modmatmul(a, b))
+
+
+def test_modmatmul_thin_broadcast_and_strided_b(cuda):
+    from repro_torch.kernels.plan import gemm_path
+    rng = np.random.default_rng(9)
+    a, b = _fld(rng, 50, 17), _fld(rng, 6, 17, 1001)
+    ab = a.to(cuda)[None].expand(6, 50, 17)              # batch stride 0
+    _eq(mm.modmatmul_batched(ab, b.to(cuda)),
+        ref.modmatmul_batched(a[None].expand(6, 50, 17), b))
+    bt = _fld(rng, 300, 7)                               # B columns strided
+    assert gemm_path(8, 7, bt.t().stride(1), 300) == "tiled"
+    a8 = _fld(rng, 8, 7)
+    _eq(mm.modmatmul(a8.to(cuda), bt.to(cuda).t()), ref.modmatmul(a8, bt.t()))
+
+
+@pytest.mark.parametrize("n,m,d,c,degree,offset", [
+    (3, 37, 29, 1, 1, 0),       # X~ of 12,876 bytes: a ragged tail
+    (4, 45, 4000, 1, 1, 0),     # bm = 7, clients 0 mod 16
+    (2, 19, 3073, 10, 3, 0),    # the "smem" accumulator mode, C = 10
+    (2, 3, 40000, 1, 1, 0),     # the "atomic" mode, one stage, bm = 1
+    (3, 3, 24, 1, 1, 0),        # m below one slice, two warps a row
+    (5, 37, 3073, 1, 1, 1)])    # X~ starting 4 bytes off: a ragged head
+def test_coded_gradient_ring_layouts(cuda, n, m, d, c, degree, offset):
+    rng = np.random.default_rng(n + m + d + c)
+    flat = _fld(rng, offset + n * m * d)
+    x = flat.to(cuda)[offset:].view(n, m, d)
+    w, co = _fld(rng, n, d, c), _fld(rng, degree + 1)
+    _eq(cg.coded_gradient_matrix(x, w.to(cuda), co.to(cuda)),
+        ref.coded_gradient_matrix(flat[offset:].view(n, m, d), w, co))
+
+
+@pytest.mark.parametrize("c", [1, 10])
+def test_fused_step_fault_form_matches_plain(cuda, c):
+    """One adversary's offset (the fault form's non-zero adv_off)."""
+    rng = np.random.default_rng(40 + c)
+    n, m, d = 4, 19, 3073
+    shapes = [(n, m, d), (n, d, c), (2,), (n,), (n,), (n,)] + [(n, d, c)] * 5
+    args = [_fld(rng, *s) for s in shapes]
+    args[3] = torch.zeros(n, dtype=torch.int32)
+    args[3][2] = 1 << 20
+    kw = dict(q_eta=5, inv2k1=field.host_inv(1 << 8), k1=8)
+    got = fs.fused_step(*[a.to(cuda) for a in args], **kw)
+    for g, w in zip(got, ref.fused_step(*args, **kw)):
+        _eq(g, w)
+
+
+def test_gradient_kernels_at_p_minus_1_past_d_32768(cuda):
+    """x = w = p - 1 at d = 40000: pass 1's lane sums pass 2^58 (each
+    product is near 2^52), so only the full reduce_p gives the right bits."""
+    n, m, d = 2, 3, 40000
+    x = torch.full((n, m, d), P - 1, dtype=torch.int32)
+    w = torch.full((n, d, 1), P - 1, dtype=torch.int32)
+    co = torch.tensor([5, P - 1], dtype=torch.int32)
+    want = ref.coded_gradient_matrix(x, w, co)
+    _eq(cg.coded_gradient_matrix(x.to(cuda), w.to(cuda), co.to(cuda)), want)
+    rng = np.random.default_rng(7)
+    rest = [_fld(rng, n) for _ in range(3)] + \
+        [_fld(rng, n, d, 1) for _ in range(5)]
+    rest[0] = torch.zeros(n, dtype=torch.int32)          # no adversary
+    kw = dict(q_eta=5, inv2k1=field.host_inv(1 << 8), k1=8)
+    got = fs.fused_step(*[a.to(cuda) for a in (x, w, co, *rest)], **kw)
+    for g, w_ in zip(got, ref.fused_step(x, w, co, *rest, **kw)):
+        _eq(g, w_)

@@ -20,7 +20,7 @@ from repro_torch.kernels import coded_gradient as cg
 from repro_torch.kernels import field_poly as fp
 from repro_torch.kernels import fused_step as fs
 from repro_torch.kernels import modmatmul as mm
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, plan, ref
 
 P = field.P
 K1 = 8
@@ -123,11 +123,12 @@ def test_kernel_launchers_refuse_cpu_tensors():
 
 
 def test_pick_bm_fits_shared_memory():
-    assert fs.pick_bm is cg.pick_bm          # one gradient body, one height
-    assert fs.pick_bm(3073, 1) == 8          # cifar10_case2: ~98 KB a block
-    assert fs.pick_bm(24, 10) == cg.MAX_BM
+    assert fs.plan_args is cg.plan_args      # one gradient body, one plan
+    bm = lambda d, c: plan.gradient_plan(plan.MAX_BM, d, c)["bm"]  # noqa: E731
+    assert bm(3073, 1) == 8                  # cifar10_case2: ~98 KB a slice
+    assert bm(24, 10) == plan.MAX_BM
     with pytest.raises(ValueError):
-        fs.pick_bm(60000, 1)
+        bm(60000, 1)
 
 
 # ragged small shapes: m = 13 and d in {6, 24} are not multiples of the

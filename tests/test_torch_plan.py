@@ -1,0 +1,329 @@
+"""repro_torch kernels/plan.py: the launchers' host-side choices, on the CPU.
+
+The CUDA kernels run only on a card; every launch parameter they take is
+decided in kernels/plan.py by pure functions, checked here: the reduction
+mod p against `%`, the field GEMM's thin-path predicate, instance and grid
+at every main-path shape, the gradient kernel's plan (mode, slice height,
+ring, shared memory, the no-reduce bounds), its strip split, the 16-byte
+peel of each slice's bulk copy, and a numpy model of the gradient kernel
+(its lanes, reductions and strip/flush schedule) against the plain coded
+gradient, at random and at worst-case (p - 1) values.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import field
+from repro_torch.kernels import plan, ref
+
+P = field.P
+# cifar10_case2: N=50 clients, mk=902 coded rows, d=3073, K=10, T=7
+N, MK, D, KK, T = 50, 902, 3073, 10, 7
+
+
+def test_reduce_p_matches_mod_on_edges_and_random():
+    edges = [0, P - 1, P, P + 1, 1 << 26, (1 << 26) + 4, 1 << 52,
+             (P - 1) ** 2, 64 * (P - 1) ** 2, 1 << 58, 4095 * (P - 1) ** 2,
+             (1 << 64) - 1, (1 << 64) - 2, (1 << 41) - 1, (1 << 27) + 9]
+    rng = np.random.default_rng(0)
+    rand = rng.integers(0, 1 << 63, size=20000, dtype=np.uint64) * \
+        np.uint64(2) + rng.integers(0, 2, size=20000, dtype=np.uint64)
+    for xs in (np.array(edges, dtype=np.uint64), rand):
+        want = np.array([int(v) % P for v in xs], dtype=np.uint64)
+        np.testing.assert_array_equal(plan.reduce_p(xs), want)
+    assert plan.P == P
+
+
+def test_reduce_p58_matches_mod_below_2_58():
+    """The thin GEMM's outputs and pass 2's per-slice sums (at most 64
+    products < 2^52)."""
+    edges = [0, P - 1, P, 1 << 26, (1 << 52) - 1, 64 * (P - 1) ** 2,
+             (1 << 58) - 1, (1 << 32) * 5, (1 << 35) + 12345]
+    rng = np.random.default_rng(1)
+    rand = rng.integers(0, 1 << 58, size=20000, dtype=np.uint64)
+    for xs in (np.array(edges, dtype=np.uint64), rand):
+        want = np.array([int(v) % P for v in xs], dtype=np.uint64)
+        np.testing.assert_array_equal(plan.reduce_p58(xs), want)
+
+
+def _b_stride(k, n, transposed=False):
+    b = torch.empty((n, k), dtype=torch.int32).t() if transposed else \
+        torch.empty((k, n), dtype=torch.int32)
+    return b.stride(1)
+
+
+@pytest.mark.parametrize("what,m,k,n", [
+    ("share X (setup)", N, T, 6151),
+    ("lcc encode (setup, per holder)", N, KK + T, 6151),
+    ("reconstruct coded X (setup)", 1, T + 1, 6151),
+    ("share (per step)", N, T, 3073),
+    ("reconstruct from all holders (per step)", 1, N, 3073),
+    ("open model (per step)", 1, T + 1, 3073),
+    ("model encode (per step, batched)", N, KK + T, 3073),
+    ("decode base (per step, batched)", 1, N, 3073),
+    ("siloed decode (per step, batched)", 1, N - 1, 3073)])
+def test_main_path_gemms_take_the_thin_path(what, m, k, n):
+    assert plan.gemm_path(m, k, _b_stride(k, n), n) == "thin", what
+    launch = plan.thin_launch(m, n, k, 1, 132)
+    assert k <= launch["kmax"] and launch["cols"] * launch["kmax"] <= 64
+    if k in (T, T + 1, KK + T):             # share, reconstruct, LCC encode
+        assert launch["kmax"] == k          # an exact instance: no padding
+
+
+def _groups(m, n, k, batch):
+    launch = plan.thin_launch(m, n, k, batch, 132)
+    return launch["rpg"], launch["groups"]
+
+
+def test_thin_row_groups_fill_the_card_at_narrow_n():
+    # per-step share (50,7)@(7,3073): 4 column blocks -> rows split 50 ways
+    assert _groups(N, 3073, T, 1) == (1, 50)
+    assert plan.thin_launch(N, 3073, T, 1, 132)["gx"] == 4
+    # model encode (50,50,17)@(50,17,3073): 7 column blocks x 50 batches
+    assert _groups(N, 3073, KK + T, N) == (N, 1)
+    # share X (50,7)@(7,27.7M): the columns fill the card, ~16 blocks an SM
+    assert _groups(N, 27715387, T, 1) == (N, 1)
+    assert plan.thin_launch(N, 27715387, T, 1, 132)["gx"] == 132 * 16
+    for m, n, k, b in [(1, 5, 8, 1), (64, 100, 64, 3), (17, 9019, 7, 1)]:
+        rpg, groups = _groups(m, n, k, b)
+        assert rpg * groups >= m > rpg * (groups - 1)
+        assert groups <= 65535
+
+
+def test_other_gemms_take_the_tiled_path():
+    # X^T y: (d, m) @ (m, 1) per client, K = 9019
+    y = torch.empty((N, 9019, 1), dtype=torch.int32)
+    assert plan.gemm_path(D, 9019, y.stride(2), 1) == "tiled"
+    assert plan.gemm_path(8, 65, 1, 100) == "tiled"              # K > 64
+    assert plan.gemm_path(65, 8, 1, 100) == "tiled"              # M > 64
+    assert plan.gemm_path(8, 8, _b_stride(8, 100, True), 100) == "tiled"
+    assert plan.gemm_path(8, 8, 7, 1) == "thin"     # one column: any stride
+    ks = (1, 7, 8, 9, 14, 15, 16, 17, 18, 24, 25, 33, 49, 50, 64)
+    assert [plan.thin_launch(1, 100, k, 1, 132)["kmax"] for k in ks] == [
+        7, 7, 8, 16, 16, 16, 16, 17, 24, 24, 32, 48, 64, 64, 64]
+    for kmax, cols in plan.THIN_KMAX:
+        assert cols * kmax <= 64 and kmax <= plan.NO_REDUCE58_TERMS
+    for k in (0, 65):
+        with pytest.raises(ValueError):
+            plan.thin_launch(1, 100, k, 1, 132)
+
+
+@pytest.mark.parametrize("m,d,c,want", [
+    (MK, D, 1, dict(mode="reg", ept=8, bm=8, stages=2)),
+    (MK, D, 10, dict(mode="smem", ept=0, bm=4, stages=2)),
+    (98, 24, 10, dict(mode="reg", ept=1, bm=64, stages=2)),
+    (3, 24, 1, dict(mode="reg", ept=1, bm=3, stages=2)),
+    (1, 40000, 1, dict(mode="atomic", ept=0, bm=1, stages=1))])
+def test_gradient_plan(m, d, c, want):
+    pl = plan.gradient_plan(m, d, c)
+    assert {k: pl[k] for k in want} == want
+    assert pl["smem"] <= plan.SMEM_MAX
+    assert pl["smem"] == plan.grad_smem(pl["bm"], pl["stages"], d, c,
+                                        pl["mode"] == "smem")
+    assert pl["sbytes"] == plan.stage_bytes(pl["bm"], d)
+    assert pl["sbytes"] % 16 == 0 and \
+        pl["sbytes"] >= 4 * pl["bm"] * d + plan.COPY_SLACK
+    assert 1 <= pl["bm"] <= plan.NO_REDUCE58_TERMS     # pass 2: reduce_p58
+    if pl["mode"] == "reg":
+        assert pl["ept"] * plan.GRAD_THREADS >= d * c
+    assert plan.pass1_terms(d) < plan.NO_REDUCE_TERMS
+
+
+def test_no_reduce_bound_covers_the_d_limit():
+    """Pass 1's lane sums stay inside uint64 at the widest d the plan
+    takes, but pass reduce_p58's 64 terms above d = 32768: pass 1 reduces
+    with the full reduce_p.  Pass 2's per-slice sums (bm rows) and the thin
+    GEMM's outputs (K terms) stay within reduce_p58's."""
+    widest = plan.max_d()
+    assert 50000 < widest < 60000
+    assert plan.pass1_terms(widest) == -(-(-(-widest // 16)) // 32)
+    assert plan.pass1_terms(widest) < plan.NO_REDUCE_TERMS
+    assert plan.pass1_terms(32768) == plan.NO_REDUCE58_TERMS
+    assert plan.pass1_terms(40000) > plan.NO_REDUCE58_TERMS
+    assert plan.NO_REDUCE_TERMS * (P - 1) ** 2 < 1 << 64
+    assert plan.NO_REDUCE58_TERMS * (P - 1) ** 2 < 1 << 58
+    assert plan.MAX_BM <= plan.NO_REDUCE58_TERMS
+    assert plan.THIN_MAX_K <= plan.NO_REDUCE58_TERMS
+    with pytest.raises(ValueError):
+        plan.gradient_plan(1, widest + 1, 1)
+
+
+def _strip(total, run, g):
+    """The slices CTA g walks (coded_grad_kernel: s0 = g * run, cnt =
+    min(run, total - s0))."""
+    return range(g * run, min(total, (g + 1) * run))
+
+
+@pytest.mark.parametrize("total,slots", [(N * 113, 132), (7, 132),
+                                         (1000, 264), (26, 26)])
+def test_strips_cover_every_slice_once(total, slots):
+    run, ctas = plan.strip_run(total, slots)
+    assert ctas <= slots
+    # csrc/coded_gradient.cuh launch_coded_grad's check of the split
+    assert ctas * run >= total > (ctas - 1) * run
+    seen, sizes = [], []
+    for g in range(ctas):
+        mine = _strip(total, run, g)
+        seen.extend(mine)
+        sizes.append(len(mine))
+    assert seen == list(range(total))
+    assert max(sizes) == run and min(sizes) >= 1
+
+
+def test_strips_cut_the_accumulator_atomics():
+    """cifar10_case2 at bm = 8: one flush per (strip, client) instead of
+    one atomic per (slice, element): ~(S + N) * d atomics a step."""
+    bm = plan.gradient_plan(MK, D, 1)["bm"]
+    spb = -(-MK // bm)
+    total = N * spb
+    run, ctas = plan.strip_run(total, 132)
+    touched = sum(len({s // spb for s in _strip(total, run, g)})
+                  for g in range(ctas))
+    assert touched <= ctas + N
+    assert touched * D < total * D / 20
+
+
+def test_slice_copy_peel_at_cifar10_case2_offsets():
+    bm = plan.gradient_plan(MK, D, 1)["bm"]
+    total = N * MK * D * 4
+    assert (MK * D * 4) % 16 == 8           # odd clients start 8 bytes off
+    peeled = 0
+    for n in range(N):
+        for r0 in range(0, MK, bm):
+            rows = min(bm, MK - r0)
+            start = (n * MK + r0) * D * 4
+            cp = plan.slice_copy(0, start, rows * D * 4, total)
+            assert cp["body_lo"] % 16 == 0 and cp["body_bytes"] % 16 == 0
+            assert cp["lead"] == start % 16
+            if start % 16:
+                assert r0 % 4 or n % 2          # 4 | r0 and even n align
+            assert 0 <= cp["body_lo"] and \
+                cp["body_lo"] + cp["body_bytes"] <= total
+            peeled += cp["head_words"] + cp["tail_words"]
+    assert total % 16 == 0 and peeled == 0  # every slice is one bulk copy
+
+
+@pytest.mark.parametrize("base,n_words,start_w,len_w", [
+    (4, 1000, 0, 100),      # base 4 bytes off: the first slice peels a head
+    (0, 1001, 900, 101),    # 4004-byte tensor: the last slice peels a tail
+    (8, 6, 0, 6),           # a tensor smaller than one 16-byte line
+    (12, 50, 3, 47)])
+def test_slice_copy_reads_only_the_tensor(base, n_words, start_w, len_w):
+    data = np.arange(n_words, dtype=np.int64) + 1
+    total = 4 * n_words
+    cp = plan.slice_copy(base, 4 * start_w, 4 * len_w, total)
+    a_s = base + 4 * start_w
+    g0 = a_s // 16 * 16
+    stage = np.zeros((4 * len_w + plan.COPY_SLACK) // 4 + 8, np.int64)
+    lo, nb = cp["body_lo"], cp["body_bytes"]
+    assert lo % 16 == 0 and nb % 16 == 0
+    assert base <= lo and lo + nb <= base + total
+    for addr in range(lo, lo + nb, 4):                   # the bulk copy
+        stage[(addr - g0) // 4] = data[(addr - base) // 4]
+    heads = range(a_s, a_s + 4 * cp["head_words"], 4)
+    tails = range(a_s + 4 * (len_w - cp["tail_words"]), a_s + 4 * len_w, 4)
+    for addr in [*heads, *tails]:                        # plain loads
+        stage[(addr - g0) // 4] = data[(addr - base) // 4]
+    view = stage[cp["lead"] // 4: cp["lead"] // 4 + len_w]
+    np.testing.assert_array_equal(view, data[start_w:start_w + len_w])
+
+
+def _pass1(sl, w):
+    """z = sl @ w as the kernel's pass 1 sums it: warp q takes columns
+    [q dq, (q+1) dq), lane l of it every 32nd column from q dq + l; each
+    lane's uint64 sum is reduced once with reduce_p, the 32 lanes summed
+    (< 2^31) and reduced, then the 16 warps.  Returns (z, the largest
+    lane sum)."""
+    d = sl.shape[1]
+    dq = -(-d // plan.GRAD_WARPS)
+    j = np.arange(d)
+    lane = (j // dq) * 32 + (j % dq) % 32
+    onehot = np.zeros((d, plan.GRAD_THREADS), np.uint64)
+    onehot[j, lane] = 1
+    z = np.zeros((sl.shape[0], w.shape[1]), np.uint64)
+    top = 0
+    for cc in range(w.shape[1]):
+        sums = (sl * w[:, cc]) @ onehot              # (rows, 512) lane sums
+        top = max(top, int(sums.max()))
+        warp = plan.reduce_p(plan.reduce_p(sums).reshape(-1, 16, 32).sum(2))
+        z[:, cc] = plan.reduce_p(warp.sum(1))
+    return z, top
+
+
+def _model_gradient(x, w, co, slots):
+    """numpy model of coded_grad_kernel: strips of slices (plan.strip_run),
+    pass 1 by lanes (_pass1), Horner, pass 2 per the plan's mode -- "reg":
+    raw uint64 sums across the strip, reduce_p every NO_REDUCE_TERMS rows;
+    "smem" / "atomic": each slice's sums reduced with reduce_p58 -- flushed
+    once per (strip, client) into a uint64 accumulator ("atomic": added per
+    slice), then the mod-p write.  Returns (f, the largest pass-1 lane
+    sum)."""
+    n, m, d = x.shape
+    c = w.shape[2]
+    pl = plan.gradient_plan(m, d, c)
+    bm = pl["bm"]
+    spb = -(-m // bm)
+    total = n * spb
+    xs, ws = x.astype(np.uint64), w.astype(np.uint64)
+    facc = np.zeros((n, d, c), np.uint64)
+    coeffs = [int(v) for v in co]
+    run, ctas = plan.strip_run(total, slots)
+    top = 0
+    for g in range(ctas):
+        mine = _strip(total, run, g)
+        acc = np.zeros((d, c), np.uint64)
+        terms = 0
+        for s in mine:
+            cl, r0 = s // spb, (s % spb) * bm
+            sl = xs[cl, r0:r0 + bm]
+            z, lane_top = _pass1(sl, ws[cl])
+            top = max(top, lane_top)
+            gz = np.zeros_like(z)
+            for cf in reversed(coeffs):
+                gz = plan.reduce_p(gz * z + np.uint64(cf))
+            part = sl.T @ gz                        # <= bm <= 64 products
+            if pl["mode"] == "reg":
+                if terms + len(sl) >= plan.NO_REDUCE_TERMS:
+                    acc, terms = plan.reduce_p(acc), 1
+                terms += len(sl)
+                acc += part
+            elif pl["mode"] == "smem":
+                acc = plan.reduce_p(acc + plan.reduce_p58(part))
+            else:
+                facc[cl] += plan.reduce_p58(part)
+            if s == mine[-1] or (s + 1) // spb != cl:
+                facc[cl] += plan.reduce_p(acc)
+                acc[:] = 0
+                terms = 0
+    return plan.reduce_p(facc).astype(np.int32), top
+
+
+@pytest.mark.parametrize("n,m,d,c,degree,slots", [
+    (3, 37, 29, 1, 1, 4), (5, 13, 24, 10, 3, 3), (2, 130, 300, 10, 1, 7),
+    (4, 1, 6, 1, 3, 132), (2, 19, 5000, 1, 1, 3)])
+def test_gradient_schedule_model_matches_plain(n, m, d, c, degree, slots):
+    rng = np.random.default_rng(n * m + d + c)
+    x = rng.integers(0, P, size=(n, m, d), dtype=np.int64).astype(np.int32)
+    w = rng.integers(0, P, size=(n, d, c), dtype=np.int64).astype(np.int32)
+    co = rng.integers(0, P, size=degree + 1, dtype=np.int64).astype(np.int32)
+    want = ref.coded_gradient_matrix(torch.from_numpy(x), torch.from_numpy(w),
+                                     torch.from_numpy(co))
+    np.testing.assert_array_equal(_model_gradient(x, w, co, slots)[0],
+                                  want.numpy())
+
+
+def test_gradient_model_at_p_minus_1_past_d_32768():
+    """x = w = p - 1 at d = 40000 (the "atomic" mode): pass 1's lane sums
+    reach past 2^58, where reduce_p58 would be wrong; the model, with the
+    kernel's reductions, still equals the plain gradient."""
+    n, m, d = 2, 3, 40000
+    x = np.full((n, m, d), P - 1, np.int32)
+    w = np.full((n, d, 1), P - 1, np.int32)
+    co = np.array([5, P - 1], np.int32)
+    assert plan.gradient_plan(m, d, 1)["mode"] == "atomic"
+    got, top = _model_gradient(x, w, co, 132)
+    assert top >= 1 << 58
+    want = ref.coded_gradient_matrix(torch.from_numpy(x), torch.from_numpy(w),
+                                     torch.from_numpy(co))
+    np.testing.assert_array_equal(got, want.numpy())
