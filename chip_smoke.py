@@ -12,11 +12,17 @@ Phases (a failed phase fails the run; no failure is caught):
               ragged shapes reach every branch of the redesigned kernels:
               the thin GEMM at M, K in {1, 8, 17, 50, 64, 65}, odd N,
               batch stride 0, a strided B that keeps the tiled path; the
+              column-sum GEMM (X^T y) at K in {65, 4097, 8193, 9019,
+              40000}, N in {1, 2, 3, 5, 10, 16}, odd M, a batch of 1, A 4
+              bytes off a 16-byte line, a class-major B, one split, and
+              x = y = p - 1 at K = 40000 and with 4096-row splits; the
               gradient kernel's three accumulator modes, clients off
               16-byte lines, bm = 3 and 7, m below one slice, X~ sizes not
               a multiple of 16 bytes, an X~ starting 4 bytes off, C = 1
               and 10, one adversary's offset, and x = w = p - 1 at
-              d = 40000 (pass 1's lane sums past 2^58)
+              d = 40000 (pass 1's lane sums past 2^58); poly_eval on both
+              kernels (short; grid-stride past one wave), at degrees 0 to 63, z 4 bytes off and
+              z = every coefficient = p - 1
   3. golden   api.fit on cuda reproduces the smoke goldens (weights, share
               and history sha256) and the pinned mnist10_like /
               linreg_smoke / cifar10_like / smoke_straggler shas of the JAX
@@ -29,20 +35,23 @@ Phases (a failed phase fails the run; no failure is caught):
               after, and the last step's fused_step operands are re-checked
               against the plain version; every field GEMM of the fit is
               counted by shape, path and phase (setup, step), re-checked
-              and timed by device time
+              and timed by device time; no GEMM of the fit may take the
+              tiled kernel (X^T y takes the column-sum kernel)
   5. siloed   the same fit on the siloed schedule: coded_gradient_batched
               once per step, fused_step never, the last step's operands
-              re-checked, weights and history equal to the fused run's;
+              re-checked, weights and history equal to the fused run's,
+              its GEMMs by shape and path as in phase 4;
               then mnist10_like on the siloed schedule (the matrix kernel)
   6. faulty   the full fit under a fault plan (a straggler, and from step 3
               an adversary: exactly R = 49 available), on both schedules:
               weights and history equal to the fault-free run's, and the
-              fused step's adversary offset non-zero at steps 3 and 4
+              fused step's adversary offset non-zero at steps 3 and 4,
+              its GEMMs by shape and path as in phase 4
 
 Output: one {"kernels": [...]} JSON line, the card's name and power limit
 (nvidia-smi), then {"ok": true, "device": {...}} as the last line.
-Details (per-shape timings, the ptxas report, a profile of two steps) go to
-chiprun_out/chip_smoke.json.
+Details (per-shape timings, poly_eval's device time at L = 45,100 and 2^26,
+the ptxas report, a profile of two steps) go to chip_smoke.json in OUT_DIR.
 
   python3 chip_smoke.py            # every phase (needs one CUDA card)
   python3 chip_smoke.py --quick    # build, ragged kernel checks, goldens
@@ -234,6 +243,59 @@ def grad_label(n, m, d, c) -> str:
             f"size%16={(4 * n * m * d) % 16} client%16={(4 * m * d) % 16}]")
 
 
+# (batch, M, K, N, A's offset in words, x = y = p - 1, B class-major, kc):
+# the column-sum GEMM's ragged cases; kc None takes plan.colsum_launch's
+# splits, else splits of kc rows (4096: a lane's most terms; 100: a ragged
+# 32-row block at the end of every split)
+COLSUM_CASES = [
+    (3, 33, 65, 1, 0, False, False, None),      # K just past the thin path
+    (2, 257, 4097, 2, 0, False, False, None),
+    (1, 3073, 8193, 10, 0, False, False, None),  # a batch of 1
+    (2, 95, 9019, 16, 1, False, False, None),   # A 4 bytes off a 16B line
+    (1, 129, 40000, 1, 0, True, False, None),   # worst sums, largest K
+    (13, 24, 390, 10, 0, False, False, None),   # mnist10_like's setup
+    (2, 100, 20, 3, 0, False, False, None),     # one split: no combine
+    (2, 70, 300, 5, 0, False, True, None),      # B class-major
+    (1, 40, 8193, 2, 0, True, False, 4096),     # 4096 products of p - 1
+    (2, 70, 4096, 1, 0, True, False, 4096),
+    (2, 65, 1000, 10, 0, False, False, 100)]
+
+
+def colsum_checks(ck: Checker, paths: dict) -> None:
+    """The column-sum GEMM at COLSUM_CASES against the plain version, each
+    counted in `paths`."""
+    torch = ck.torch
+    from repro_torch.kernels import modmatmul as mm
+    from repro_torch.kernels import plan, ref
+    for (b, m, k, n, off, worst, b_strided, kc) in COLSUM_CASES:
+        xt = ck.field(off + b * k * m)[off:].view(b, k, m).transpose(1, 2)
+        y = ck.field(b, n, k).transpose(1, 2) if b_strided else \
+            ck.field(b, k, n)
+        if worst:
+            xt.fill_(ck.P - 1)
+            y.fill_(ck.P - 1)
+        path = mm.path_of(xt, y)
+        assert path == "colsum", (b, m, k, n, path)
+        paths[path] += 1
+        if kc is None:
+            got = mm.modmatmul_batched(xt, y)
+            kc = plan.colsum_launch(m, n, k, b, torch.cuda.get_device_properties(
+                0).multi_processor_count)["kc"]
+        else:
+            splits = -(-k // kc)
+            launch = dict(cmax=next(c for c in plan.COLSUM_CMAX if n <= c),
+                          kc=kc, splits=splits,
+                          ctas=-(-(b * -(-m // 32) * splits)
+                                 // plan.COLSUM_WARPS))
+            got = mm.colsum(xt, y, torch.empty((b, m, n), dtype=torch.int32,
+                                               device="cuda"), launch)
+        ck.compare("modmatmul_batched", got,
+                   ref.modmatmul_batched(xt.cpu(), y.cpu()),
+                   f"colsum ({b},{m},{k})@({b},{k},{n}) offset {off} kc {kc}"
+                   f"{' p - 1' if worst else ''}"
+                   f"{' B class-major' if b_strided else ''}")
+
+
 def phase_kernels(ck: Checker, quick: bool) -> dict:
     """Ragged and main-path checks; returns the JSON rows per kernel."""
     torch = ck.torch
@@ -255,13 +317,12 @@ def phase_kernels(ck: Checker, quick: bool) -> dict:
     # thin path: every M x K in {1, 8, 17, 50, 64, 65}^2 at an odd N (rows
     # start 4, 8 or 12 bytes off a 16-byte line), past the grid's stride,
     # and a strided B (M, K <= 64) that must keep the tiled path
-    from repro_torch.kernels.plan import gemm_path
-    paths = {"thin": 0, "tiled": 0}
+    paths = {"thin": 0, "tiled": 0, "colsum": 0}
     sizes = (1, 8, 17, 50, 64, 65)
     for m in sizes:
         for k in sizes:
             a, b = ck.field(m, k), ck.field(k, 2053)
-            path = gemm_path(m, k, b.stride(1), b.shape[1])
+            path = mm.path_of(a[None], b[None])
             paths[path] += 1
             ck.compare("modmatmul", mm.modmatmul(a, b),
                        ref.modmatmul(a.cpu(), b.cpu()),
@@ -273,7 +334,8 @@ def phase_kernels(ck: Checker, quick: bool) -> dict:
                    ref.modmatmul(a.cpu(), b[:, cols].cpu()),
                    "thin (50,7)@(7,2500001) grid stride")
     a8, bt = ck.field(8, 7), ck.field(300, 7).t()      # B's columns strided
-    assert gemm_path(8, 7, bt.stride(1), 300) == "tiled"
+    assert mm.path_of(a8[None], bt[None]) == "tiled"
+    paths["tiled"] += 1
     ck.compare("modmatmul", mm.modmatmul(a8, bt),
                ref.modmatmul(a8.cpu(), bt.cpu()), "tiled strided B (8,7)@(7,300)")
     ab = ck.field(50, 17)[None].expand(6, 50, 17)
@@ -281,7 +343,7 @@ def phase_kernels(ck: Checker, quick: bool) -> dict:
     ck.compare("modmatmul_batched", mm.modmatmul_batched(ab, bb),
                ref.modmatmul_batched(ab.cpu(), bb.cpu()),
                "thin batch stride 0 (6,50,17)@(6,17,1001)")
-    log(f"kernels: thin/tiled GEMM checks by path {paths}")
+    colsum_checks(ck, paths)
     for (bsz, m, k, n) in [(3, 17, 40, 19), (13, 24, 13, 10), (2, 1, 9, 7)]:
         a, b = ck.field(bsz, m, k), ck.field(bsz, k, n)
         ck.compare("modmatmul_batched", mm.modmatmul_batched(a, b),
@@ -289,9 +351,12 @@ def phase_kernels(ck: Checker, quick: bool) -> dict:
                    f"({bsz},{m},{k})@({bsz},{k},{n})")
     x = ck.field(5, 2100, 300)
     y = ck.field(5, 2100, 1)
+    assert mm.path_of(x.transpose(1, 2), y) == "colsum"
+    paths["colsum"] += 1
     ck.compare("modmatmul_batched", mm.modmatmul_batched(x.transpose(1, 2), y),
                ref.modmatmul_batched(x.cpu().transpose(1, 2), y.cpu()),
-               "transposed X^T y")
+               "colsum transposed X^T y")
+    log(f"kernels: GEMM checks by path {paths}")
     row = ck.field(13)
     mix = ck.field(13, 13, 240)
     ck.compare("modmatmul_batched",
@@ -368,24 +433,33 @@ def phase_kernels(ck: Checker, quick: bool) -> dict:
         del a, b
     torch.cuda.empty_cache()
 
-    # X^T y: (N, d, m) transposed view of the shares @ (N, m, 1)
+    # X^T y: (N, d, m) transposed view of the shares @ (N, m, C), on the
+    # column-sum kernel; C = 10 is a 10-class objective at the same width
     x = ck.field(n_cl, m_rows, d)
-    y = ck.field(n_cl, m_rows, 1)
-    out = mm.modmatmul_batched(x.transpose(1, 2), y)
-    for i in (0, n_cl - 1):
-        ck.compare("modmatmul_batched", out[i],
-                   ref.modmatmul(x[i].cpu().t(), y[i].cpu()), f"X^T y[{i}]")
-    ms = ck.time_ms(lambda: mm.modmatmul_batched(x.transpose(1, 2), y), 5)
-    dev = device_ms(torch, lambda: mm.modmatmul_batched(x.transpose(1, 2), y),
-                    5)
-    plain = ck.time_ms(
-        lambda: ref.modmatmul_batched(x.transpose(1, 2), y), 1)
-    bb, by = bound(4.0 * (x.numel() + y.numel() + out.numel()),
-                   2.0 * x.numel())
-    rows["modmatmul_batched"] = dict(
-        shape=f"({n_cl},{d},{m_rows})@({n_cl},{m_rows},1)", ms=ms,
-        device_ms=dev, plain_ms=plain, bound_ms=bb, bound_by=by)
-    del x, y, out
+    for c in (1, 10):
+        y = ck.field(n_cl, m_rows, c)
+        assert mm.path_of(x.transpose(1, 2), y) == "colsum"
+        out = mm.modmatmul_batched(x.transpose(1, 2), y)
+        for i in (0, n_cl - 1):
+            ck.compare("modmatmul_batched", out[i],
+                       ref.modmatmul(x[i].cpu().t(), y[i].cpu()),
+                       f"X^T y C={c} [{i}]")
+        ms = ck.time_ms(lambda: mm.modmatmul_batched(x.transpose(1, 2), y),
+                        5)
+        dev = device_ms(torch, lambda: mm.modmatmul_batched(
+            x.transpose(1, 2), y), 5)
+        plain = ck.time_ms(
+            lambda: ref.modmatmul_batched(x.transpose(1, 2), y), 1)
+        bb, by = bound(4.0 * (x.numel() + y.numel() + out.numel()),
+                       2.0 * x.numel() * c)
+        rec = dict(shape=f"({n_cl},{d},{m_rows})@({n_cl},{m_rows},{c})",
+                   ms=ms, device_ms=dev, plain_ms=plain, bound_ms=bb,
+                   bound_by=by, path="colsum")
+        ck.rows.append(dict(kernel="modmatmul_batched",
+                            what=f"X^T y (setup) C={c}", **rec))
+        rows.setdefault("modmatmul_batched", rec)
+        del y, out
+    del x
     torch.cuda.empty_cache()
     for label, (a, b) in {
             "LCC encode model (per iteration)": (
@@ -536,7 +610,7 @@ def gemm_table(ck: Checker, shape_log: ShapeLog, iters: int) -> list:
             bsz, (m_, k_), n_ = 1, ash, bsh[1]
         else:
             (bsz, m_, k_), n_ = ash, bsh[2]
-        path = gemm_path(m_, k_, bst[-1], n_)
+        path = gemm_path(m_, k_, bst[-1], n_, ast[-2])
         if key[1:] not in GEMM_TIMES:
             a, abase = strided_field(ck, ash, ast)
             b, bbase = strided_field(ck, bsh, bst)
@@ -558,12 +632,21 @@ def gemm_table(ck: Checker, shape_log: ShapeLog, iters: int) -> list:
         dev, events, bb, by = GEMM_TIMES[key[1:]]
         per_fit = count if phase == "setup" else count / iters * 50
         rows.append(dict(phase=phase, kernel=name, path=path,
-                         shape=f"{ash}@{bsh}", b_stride=list(bst),
+                         shape=f"{ash}@{bsh}", k=k_, b_stride=list(bst),
                          launches=count, launches_50_iter_fit=per_fit,
                          device_ms=dev, events_ms=events, bound_ms=bb,
                          bound_by=by, lost_ms_50_iter_fit=None if dev is None
                          else per_fit * (dev - bb)))
     return rows
+
+
+def no_tiled_gemm(rows: list) -> None:
+    """No GEMM of a full-width fit takes the tiled kernel: X^T y (K = m =
+    9019, past the thin kernel's 64) takes the column-sum kernel, every
+    other the thin one."""
+    for r in rows:
+        want = "colsum" if r["k"] > 64 else "thin"
+        assert r["path"] == want, r
 
 
 def log_gemm_table(what: str, rows: list) -> None:
@@ -642,9 +725,8 @@ def phase_full(ck: Checker, np) -> tuple:
     profiled, table = profile_steps(torch, proto, res.state)
     gemms = gemm_table(ck, shapes, iters)
     log_gemm_table("fused", gemms)
+    no_tiled_gemm(gemms)
     thin = [r for r in gemms if r["path"] == "thin"]
-    assert all(r["path"] == "thin" or r["bound_by"] == "bytes" and
-               "9019" in r["shape"] for r in gemms), gemms
     assert {r["phase"] for r in thin} == {"setup", "step"}, gemms
 
     summary = dict(workload=wl.name, n=wl.n_clients, m=wl.m, d=wl.d,
@@ -708,10 +790,26 @@ def phase_kernels_siloed(ck: Checker, quick: bool) -> dict:
     # x = w = p - 1 past d = 32768: pass 1's lane sums pass 2^58
     check_cg("N=2 m=3 d=40000 C=1 x = w = p - 1", 2, 3, 40000, 1, 1,
              worst=True)
-    for (shape, deg) in [((45,), 1), ((7, 13), 3), ((4099,), 3), ((1,), 1)]:
-        z, co = ck.field(*shape), ck.field(deg + 1)
+    # poly_eval: both kernels (one thread an element; grid-stride past
+    # one wave of chunks), 2-D, degrees 0 to 63, z 4 bytes off, z = every
+    # coefficient = p - 1
+    for (shape, deg, off, worst) in [
+            ((45,), 1, 0, False), ((7, 13), 3, 0, False),
+            ((4099,), 3, 0, False), ((1,), 1, 0, False),
+            ((3_000_001,), 7, 0, False), ((5000,), 63, 1, False),
+            ((4099,), 0, 0, False), ((2049,), 7, 0, True),
+            ((2_500_003,), 63, 1, False), ((2_500_003,), 7, 0, True)]:
+        n = 1
+        for v in shape:
+            n *= v
+        z, co = ck.field(off + n)[off:].view(shape), ck.field(deg + 1)
+        if worst:
+            z.fill_(ck.P - 1)
+            co.fill_(ck.P - 1)
         ck.compare("poly_eval", fp.poly_eval(z, co),
-                   ref.poly_eval(z.cpu(), co.cpu()), f"{shape} degree {deg}")
+                   ref.poly_eval(z.cpu(), co.cpu()),
+                   f"{shape} degree {deg} offset {off}"
+                   f"{' p - 1' if worst else ''}")
     log(f"kernels: siloed ragged checks passed {dict(ck.checks)}")
     if quick:
         return {}
@@ -746,18 +844,25 @@ def phase_kernels_siloed(ck: Checker, quick: bool) -> dict:
         rows.setdefault(name, rec)
         del x, w, co, args
     torch.cuda.empty_cache()
-    for label, length in {"z of one cifar10_case2 step": 50 * 902,
-                          "ragged": 1_000_003}.items():
-        z, co = ck.field(length), ck.field(2)
+    # poly_eval: the z of one cifar10_case2 step (a launch's floor) and
+    # 2^26 elements (512 MB, bytes-bound), at COPML's degree r = 1 and 7
+    for label, length, deg in [("z of one cifar10_case2 step", 50 * 902, 1),
+                               ("z of one cifar10_case2 step", 50 * 902, 7),
+                               ("2^26", 1 << 26, 1), ("2^26", 1 << 26, 7),
+                               ("ragged", 1_000_003, 3)]:
+        z, co = ck.field(length), ck.field(deg + 1)
         ck.compare("poly_eval", fp.poly_eval(z, co),
-                   ref.poly_eval(z.cpu(), co.cpu()), label)
-        ms_ = ck.time_ms(lambda: fp.poly_eval(z, co), 50)
+                   ref.poly_eval(z.cpu(), co.cpu()), f"{label} degree {deg}")
+        reps = 50 if length < 1 << 20 else 20
+        ms_ = ck.time_ms(lambda: fp.poly_eval(z, co), reps)
+        dev_ = device_ms(torch, lambda: fp.poly_eval(z, co), reps)
         pl_ = ck.time_ms(lambda: ref.poly_eval(z, co), 5)
-        bb_, by_ = bound(8.0 * length, 2.0 * length)
-        rec = dict(shape=f"L={length}", ms=ms_, plain_ms=pl_, bound_ms=bb_,
-                   bound_by=by_)
+        bb_, by_ = bound(8.0 * length, 2.0 * deg * length)
+        rec = dict(shape=f"L={length} degree {deg}", ms=ms_, device_ms=dev_,
+                   plain_ms=pl_, bound_ms=bb_, bound_by=by_)
         ck.rows.append(dict(kernel="poly_eval", what=label, **rec))
         rows.setdefault("poly_eval", rec)
+        del z, co
     log(f"kernels: siloed main-path checks passed {dict(ck.checks)}")
     return rows
 
@@ -875,6 +980,7 @@ def phase_siloed(ck: Checker, np, fused) -> tuple:
     summary = run_summary(res, counts, peak)
     summary["gemm_shapes"] = gemm_table(ck, shapes, FULL_ITERS)
     log_gemm_table("siloed", summary["gemm_shapes"])
+    no_tiled_gemm(summary["gemm_shapes"])
     set_schedule("0")                      # the siloed run's driver
     proto = api.protocols.driver(api.get_workload(FULL_WORKLOAD),
                                  ck.torch.device("cuda"))
@@ -928,8 +1034,9 @@ def phase_faulty(ck: Checker, np, fused) -> dict:
     log(f"faulty: {plan.describe()}, headroom per step {headroom.tolist()}")
     out = {}
     for mode in ("1", "0"):
+        shapes = ShapeLog()
         res, counts, calls, peak = fit_full(
-            ck, mode, record=("fused_step",), faults=plan)
+            ck, mode, record=("fused_step",), faults=plan, shape_log=shapes)
         same_model(np, res, fused, f"faulty (schedule {mode}) vs fault-free")
         if mode == "1":
             offsets = [args[3].cpu() for args, _ in calls["fused_step"]]
@@ -942,6 +1049,10 @@ def phase_faulty(ck: Checker, np, fused) -> dict:
         res.state = None
         del calls
         out[f"schedule {mode}"] = run_summary(res, counts, peak)
+        gemms = gemm_table(ck, shapes, FULL_ITERS)
+        log_gemm_table(f"faulty {mode}", gemms)
+        no_tiled_gemm(gemms)
+        out[f"schedule {mode}"]["gemm_shapes"] = gemms
         log(f"faulty: schedule {mode}: weights and history equal the "
             f"fault-free run's; {out[f'schedule {mode}']['ms_per_iter']:.3f} "
             f"ms/iter, launches {counts}")
@@ -950,7 +1061,7 @@ def phase_faulty(ck: Checker, np, fused) -> dict:
 
 # (label, kernel, A or x shape, B or W shape, C): the redesigned kernels at
 # the main path's shapes, for --compare (cifar10_case2: N=50, mk=902,
-# d=3073, K=10, T=7)
+# d=3073, K=10, T=7); X^T y's A is the transposed view of (N, m, d) shares
 COMPARE_SHAPES = [
     ("fused_step", "fused_step", (50, 902, 3073), None, 1),
     ("fused_step C=10", "fused_step", (50, 902, 3073), None, 10),
@@ -964,8 +1075,14 @@ COMPARE_SHAPES = [
     ("share (per step)", "modmatmul", (50, 7), (7, 153650), 0),
     ("model encode (per step)", "modmatmul_batched", (50, 50, 17),
      (50, 17, 3073), 0),
-    ("X^T y (setup, tiled in both)", "modmatmul_batched", (50, 3073, 9019),
-     (50, 9019, 1), 0),
+    ("X^T y (setup)", "modmatmul_batched", (50, 3073, 9019), (50, 9019, 1),
+     0),
+    ("X^T y C=10 (a 10-class objective)", "modmatmul_batched",
+     (50, 3073, 9019), (50, 9019, 10), 0),
+    # (label, "poly_eval", (L,), None, degree)
+    ("poly_eval L=45100 degree 1", "poly_eval", (45100,), None, 1),
+    ("poly_eval L=2^26 degree 1", "poly_eval", (1 << 26,), None, 1),
+    ("poly_eval L=2^26 degree 7", "poly_eval", (1 << 26,), None, 7),
 ]
 
 
@@ -979,6 +1096,7 @@ def time_only(src: str) -> dict:
     from repro_torch.core.field import P
     from repro_torch.kernels import build
     from repro_torch.kernels import coded_gradient as cg
+    from repro_torch.kernels import field_poly as fp
     from repro_torch.kernels import fused_step as fs
     from repro_torch.kernels import modmatmul as mm
     build.build_all()
@@ -994,13 +1112,17 @@ def time_only(src: str) -> dict:
             x, w, co = ck.field(n, m, d), ck.field(n, d, c), ck.field(2)
             args = (x, w[..., 0], co) if c == 1 else (x, w, co)
             fn = (lambda f, a: lambda: f(*a))(getattr(cg, name), args)
+        elif name == "poly_eval":
+            z, co = ck.field(*ashape), ck.field(c + 1)
+            fn = (lambda z_, c_: lambda: fp.poly_eval(z_, c_))(z, co)
         else:
-            a = ck.field(*ashape)
             b = ck.field(*bshape)
             if "X^T y" in label:
                 a = ck.field(ashape[0], ashape[2], ashape[1]).transpose(1, 2)
             elif name == "modmatmul_batched":
                 a = ck.field(*ashape[1:])[None].expand(*ashape)
+            else:
+                a = ck.field(*ashape)
             fn = (lambda f, a_, b_: lambda: f(a_, b_))(getattr(mm, name), a, b)
         out[label] = device_ms(torch, fn, 5 if "X" in label else 20)
         fn = None

@@ -3,9 +3,12 @@
 // Replaces the TPU kernels `modmatmul` / `modmatmul_batched`
 // (src/repro/kernels/modmatmul.py), which split operands into 7-bit limbs
 // and run 16 exact f32 products on the MXU.  Hopper has 64-bit integer
-// multiply-add on its CUDA cores, so both kernels here are exact the simple
+// multiply-add on its CUDA cores, so every kernel here is exact the simple
 // way: every product of two field elements is < 2^52, summed in uint64 and
 // reduced with reduce_p (field.cuh), never with a 64-bit `%`.
+//
+// Three kernels, one for each kind of GEMM the port runs; kernels/plan.py
+// gemm_path picks one from the shapes and strides.
 //
 // Bound on an H100: every GEMM of the main path except X^T y has M <= 64
 // and K <= 64 with N in the millions, so it moves ~4 bytes per element of B
@@ -38,11 +41,36 @@
 // strides over N; the batch is gridDim.y (A's batch stride may be 0); at a
 // narrow N the M rows are split in groups over gridDim.z.
 //
-// tiled_kernel (every other call: X^T y with K = 9019, transposed or
-// strided B).  A block of 256 threads owns a BM x BN output tile and walks
-// K in BK = 16 slices staged through shared memory; each thread keeps a
-// TM x TN register tile of uint64 sums, reduced every 2048 terms.  Operands
-// are read through their strides; ragged edges are masked, never padded.
+// colsum_kernel (A's M-stride 1 and N <= 16, when the thin path does not
+// take the GEMM: X^T y, whose A is the transposed view of the contiguous
+// (batch, K = m, M = d) shares, so out[b, :, c] = sum_k X[b, k, :] y[b, k, c]
+// is a column sum of X weighted by y).  It reads X once, 5.54 GB at
+// cifar10_case2 (1.65 ms at 3.35 TB/s), for 2 IMADs per element and
+// class: bytes-bound at N = 1, near the IMAD rate at N = 10 and 16.  The
+// work is cut into warp tasks (batch, 32 consecutive columns, a split of
+// kc rows of K); kernels/plan.py colsum_launch sizes the splits to give
+// the card ~16 waves of tasks and keeps kc <= kNoReduceTerms.  Lane l owns
+// column 32 g + l and keeps its N sums as carry-chained uint64 (mac_wide):
+// at most kc products, so one reduce_p at the end.  A warp stages 32 rows
+// of B in shared memory (lane l loads row l), then issues the loads of up
+// to 32 rows of its columns at once -- whole 128-byte lines a row, 4-byte
+// words, so rows 4, 8 or 12 bytes off a 16-byte line need no peel -- and
+// reads B's rows back as 16-byte broadcasts, N padded to the instance's
+// CMAX with zeros.  Each split writes its (batch, M, N) partials < p; a
+// second kernel sums the splits in uint64 and reduces (splits = 1 writes
+// the output directly).  The gradient body (coded_gradient.cuh) streams
+// the same layout, but its ring holds 8 rows of X at d = 3073 and its
+// register mode stops at d * C <= 4096 partials: X^T y at C = 10 would take
+// its shared-memory mode, at 7% of its bound (PERF.md), and modmatmul's
+// library would carry the gradient kernel; a split-K GEMV keeps any N <= 16
+// in registers at any M.
+//
+// tiled_kernel (every other call: a contiguous or strided A with K > 64,
+// N > 16, transposed or strided B).  A block of 256 threads owns a BM x BN
+// output tile and walks K in BK = 16 slices staged through shared memory;
+// each thread keeps a TM x TN register tile of uint64 sums, reduced every
+// 2048 terms.  Operands are read through their strides; ragged edges are
+// masked, never padded.
 
 #include "field.cuh"
 
@@ -121,6 +149,146 @@ cudaError_t launch_thin(const int32_t* a, int64_t sab, int64_t sam,
   thin_kernel<KMAX, COLS>
       <<<dim3(gx, batch, groups), kThinThreads, 0, stream>>>(
           a, sab, sam, sak, b, sbb, sbk, c, M, N, K, rpg);
+  return cudaGetLastError();
+}
+
+constexpr int kColsumWarps = 8;              // warp tasks a CTA
+constexpr int kColsumThreads = 32 * kColsumWarps;
+constexpr int kColsumRows = 32;              // rows of B a warp stages
+constexpr int kColsumMaxN = 16;
+
+// The MACs of XB rows of a lane's column: xv[r] times row r of the staged
+// B (CS words a row, CMAX of them classes), read as 16-byte broadcasts.
+template <int CMAX, int CS, int XB>
+__device__ __forceinline__ void colsum_macs(const uint32_t (&xv)[XB],
+                                            const uint32_t* ys,
+                                            uint32_t (&lo)[CMAX],
+                                            uint32_t (&hi)[CMAX]) {
+  static_assert(XB * CS % 4 == 0, "rows of B must fill 16-byte words");
+  const uint4* yq = reinterpret_cast<const uint4*>(ys);
+#pragma unroll
+  for (int q = 0; q < XB * CS / 4; ++q) {
+    const uint4 v = yq[q];
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = (4 * q + e) / CS, c = (4 * q + e) % CS;
+      if (c < CMAX) mac_wide(lo[c], hi[c], xv[r], w[e]);
+    }
+  }
+}
+
+// Loads rows [r0, r0 + XB) of a lane's column (x points at row 0 of its
+// 32-row block); rows at or past `rows` read as zero unless FULL.
+template <int XB, bool FULL>
+__device__ __forceinline__ void colsum_loads(uint32_t (&xv)[XB],
+                                             const int32_t* x, int64_t sak,
+                                             int r0, int rows) {
+#pragma unroll
+  for (int r = 0; r < XB; ++r)
+    xv[r] = (FULL || r0 + r < rows) ? (uint32_t)__ldg(x + (r0 + r) * sak)
+                                    : 0u;
+}
+
+template <int CMAX, int XB, bool FULL>
+__device__ __forceinline__ void colsum_block(const int32_t* x, int64_t sak,
+                                             const uint32_t (&yl)[CMAX],
+                                             uint32_t* ys, int lane, int rows,
+                                             uint32_t (&lo)[CMAX],
+                                             uint32_t (&hi)[CMAX]) {
+  constexpr int CS = CMAX <= 2 ? CMAX : (CMAX + 3) / 4 * 4;
+  uint32_t xv[XB];
+  colsum_loads<XB, FULL>(xv, x, sak, 0, rows);   // in flight with B's rows
+  __syncwarp();                                  // the last block's reads
+#pragma unroll
+  for (int c = 0; c < CMAX; ++c) ys[lane * CS + c] = yl[c];
+#pragma unroll
+  for (int c = CMAX; c < CS; ++c) ys[lane * CS + c] = 0u;   // padding
+  __syncwarp();
+  colsum_macs<CMAX, CS, XB>(xv, ys, lo, hi);
+#pragma unroll
+  for (int r0 = XB; r0 < kColsumRows; r0 += XB) {
+    colsum_loads<XB, FULL>(xv, x, sak, r0, rows);
+    colsum_macs<CMAX, CS, XB>(xv, ys + r0 * CS, lo, hi);
+  }
+}
+
+// One warp task a warp: batch bz, columns [32 g, 32 g + 32), rows
+// [s kc, s kc + kc) of K; its N partials (< p) of each column go to
+// dst[s, bz, col, :].  Lanes past M re-read column M - 1 (no extra lines)
+// and write nothing.
+template <int CMAX>
+__global__ void __launch_bounds__(kColsumThreads)
+colsum_kernel(const int32_t* __restrict__ a, int64_t sab, int64_t sak,
+              const int32_t* __restrict__ b, int64_t sbb, int64_t sbk,
+              int64_t sbn, uint32_t* __restrict__ dst, int batch, int M,
+              int N, int K, int kc, int splits) {
+  constexpr int CS = CMAX <= 2 ? CMAX : (CMAX + 3) / 4 * 4;
+  constexpr int XB = CMAX <= 2 ? 32 : CMAX <= 4 ? 16 : 8;
+  __shared__ __align__(16) uint32_t ys_all[kColsumWarps][kColsumRows * CS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = (M + 31) / 32;
+  const int64_t task = (int64_t)blockIdx.x * kColsumWarps + warp;
+  if (task >= (int64_t)batch * groups * splits) return;
+  const int g = (int)(task % groups);
+  const int s = (int)(task / groups % splits);
+  const int bz = (int)(task / ((int64_t)groups * splits));
+  const int col = g * 32 + lane;
+  const int k0 = s * kc, k1 = min(K, k0 + kc);
+  const int32_t* x = a + bz * sab + min(col, M - 1);
+  const int32_t* y = b + bz * sbb;
+  uint32_t* ys = ys_all[warp];
+
+  uint32_t lo[CMAX], hi[CMAX];                 // <= kc <= 4096 products
+#pragma unroll
+  for (int c = 0; c < CMAX; ++c) lo[c] = hi[c] = 0;
+  for (int kb = k0; kb < k1; kb += kColsumRows) {
+    const int rows = min(kColsumRows, k1 - kb);
+    uint32_t yl[CMAX];                           // lane l: row kb + l of B
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c)
+      yl[c] = (lane < rows && c < N)
+                  ? (uint32_t)__ldg(y + (kb + lane) * sbk + c * sbn) : 0u;
+    const int32_t* xb = x + kb * sak;
+    if (rows == kColsumRows)
+      colsum_block<CMAX, XB, true>(xb, sak, yl, ys, lane, rows, lo, hi);
+    else
+      colsum_block<CMAX, XB, false>(xb, sak, yl, ys, lane, rows, lo, hi);
+  }
+  if (col < M) {
+    uint32_t* d = dst + (((int64_t)s * batch + bz) * M + col) * N;
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c)
+      if (c < N) d[c] = reduce_p(wide(lo[c], hi[c]));
+  }
+}
+
+// out[e] = (sum over the splits of part[s, e]) mod p: splits values < p
+// summed in uint64.
+__global__ void __launch_bounds__(kThreads)
+colsum_combine(const uint32_t* __restrict__ part, int32_t* __restrict__ out,
+               int64_t L, int splits) {
+  const int64_t e = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= L) return;
+  uint64_t sum = 0;
+  for (int s = 0; s < splits; ++s) sum += part[s * L + e];
+  out[e] = (int32_t)reduce_p(sum);
+}
+
+template <int CMAX>
+cudaError_t launch_colsum(const int32_t* a, int64_t sab, int64_t sak,
+                          const int32_t* b, int64_t sbb, int64_t sbk,
+                          int64_t sbn, int32_t* c, uint32_t* part, int batch,
+                          int M, int N, int K, int kc, int splits, int ctas,
+                          cudaStream_t stream) {
+  uint32_t* dst = splits > 1 ? part : reinterpret_cast<uint32_t*>(c);
+  colsum_kernel<CMAX><<<ctas, kColsumThreads, 0, stream>>>(
+      a, sab, sak, b, sbb, sbk, sbn, dst, batch, M, N, K, kc, splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const int64_t L = (int64_t)batch * M * N;
+  colsum_combine<<<(unsigned)((L + kThreads - 1) / kThreads), kThreads, 0,
+                   stream>>>(part, c, L, splits);
   return cudaGetLastError();
 }
 
@@ -264,4 +432,42 @@ extern "C" int repro_modmatmul(const void* a, int64_t sab, int64_t sam,
     err = launch_tiled<64, 64, 4, 4>(pa, sab, sam, sak, pb, sbb, sbk, sbn,
                                      pc, batch, M, N, K, s);
   return static_cast<int>(err);
+}
+
+// The same product on colsum_kernel's (cmax) instance, as kernels/plan.py
+// colsum_launch decided: splits of kc rows of K over ctas CTAs of 8 warp
+// tasks.  part is a (splits, batch, M, N) int32 scratch (unused when
+// splits = 1).  Refused unless A's M-stride is 1, 1 <= N <=
+// cmax, kc <= kNoReduceTerms (one reduce_p a lane) and the splits and CTAs
+// cover K and the tasks exactly.  Returns cudaGetLastError() after the
+// launches (0 = success).
+extern "C" int repro_modmatmul_colsum(const void* a, int64_t sab, int64_t sam,
+                                      int64_t sak, const void* b, int64_t sbb,
+                                      int64_t sbk, int64_t sbn, void* c,
+                                      void* part, int batch, int M, int N,
+                                      int K, int cmax, int kc, int splits,
+                                      int ctas, void* stream) {
+  const int64_t tasks = (int64_t)batch * ((M + 31) / 32) * splits;
+  if (sam != 1 || batch < 1 || M < 1 || K < 1 || N < 1 ||
+      N > cmax || cmax > kColsumMaxN || kc < 1 || kc > kNoReduceTerms ||
+      splits < 1 || (int64_t)splits * kc < K ||
+      (int64_t)(splits - 1) * kc >= K || ctas < 1 ||
+      (int64_t)ctas * kColsumWarps < tasks ||
+      (int64_t)(ctas - 1) * kColsumWarps >= tasks ||
+      (splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto pa = static_cast<const int32_t*>(a);
+  auto pb = static_cast<const int32_t*>(b);
+  auto pc = static_cast<int32_t*>(c);
+  auto pp = static_cast<uint32_t*>(part);
+  // the instances kernels/plan.py COLSUM_CMAX names
+#define COLSUM(CMAX)                                                        \
+  if (cmax == CMAX)                                                         \
+    return static_cast<int>(launch_colsum<CMAX>(                            \
+        pa, sab, sak, pb, sbb, sbk, sbn, pc, pp, batch, M, N, K, kc, splits, \
+        ctas, s));
+  COLSUM(1) COLSUM(2) COLSUM(4) COLSUM(8) COLSUM(10) COLSUM(16)
+#undef COLSUM
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,10 +10,14 @@ Bound on an H100: the main path's GEMMs (Shamir share, LCC encode,
 reconstruct, decode base) have M <= 64 and K <= 64 with a huge N, so each
 moves ~4 bytes per element of B and of C for a few MACs: memory-bound at
 3.35 TB/s.  They take the thin kernel (A staged whole, columns of B in
-registers, coalesced 4-byte rows); X^T y (K = 9019) and strided B operands
-take the tiled kernel, which reads operands through their strides and
+registers, coalesced 4-byte rows).  X^T y (K = 9019, N = C <= 16, A the
+transposed view of the shares) reads 5.54 GB of shares once: it takes the
+column-sum kernel, a split-K GEMV whose lanes own columns of the shares and
+keep N uint64 sums each in registers.  Everything else (strided B, N > 16)
+takes the tiled kernel, which reads operands through their strides and
 masks ragged edges.  kernels/plan.py makes every choice: gemm_path the
-kernel, thin_launch the thin kernel's instance and grid.
+kernel, thin_launch the thin kernel's instance and grid, colsum_launch the
+column-sum kernel's instance, K splits and grid.
 """
 
 from __future__ import annotations
@@ -24,23 +28,26 @@ import functools
 import torch
 
 from . import build
-from .plan import gemm_path, thin_launch
+from .plan import colsum_launch, gemm_path, thin_launch
 
-_FN = None
+_FNS: dict = {}
 _TILED = dict(kmax=0, cols=0, gx=0, groups=0, rpg=0)
 
 
-def _fn():
-    global _FN
-    if _FN is None:
-        fn = build.load("modmatmul").repro_modmatmul
+def _fn(name: str = "repro_modmatmul"):
+    """The C entry `name` of the modmatmul library: repro_modmatmul (thin
+    and tiled) or repro_modmatmul_colsum."""
+    if name not in _FNS:
+        fn = getattr(build.load("modmatmul"), name)
+        ints = 9 if name == "repro_modmatmul" else 8
+        ptrs = 1 if name == "repro_modmatmul" else 2       # out (, scratch)
         fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int64] * 3
                        + [ctypes.c_void_p] + [ctypes.c_int64] * 3
-                       + [ctypes.c_void_p] + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+        _FNS[name] = fn
+    return _FNS[name]
 
 
 @functools.lru_cache(maxsize=None)
@@ -70,6 +77,13 @@ def _check(a, b, batched: bool):
                          f"{tuple(b.shape)} exceed the kernel's grid")
 
 
+def path_of(a, b) -> str:
+    """The kernel (plan.gemm_path) that takes a (B, M, K) @ (B, K, N)
+    product of these shapes and strides: "thin", "colsum" or "tiled"."""
+    return gemm_path(a.shape[1], a.shape[2], b.stride(2), b.shape[2],
+                     a.stride(1))
+
+
 def modmatmul_batched(a, b):
     """(a[i] @ b[i]) mod p on the card; a (B, M, K), b (B, K, N) int32 in
     [0, p), any strides (a batch stride may be 0).  Returns (B, M, N)."""
@@ -81,14 +95,39 @@ def modmatmul_batched(a, b):
         return out
     if k == 0:
         return out.zero_()
+    path = path_of(a, b)
+    if path == "colsum":
+        return colsum(a, b, out, colsum_launch(m, n, k, bsz,
+                                               _sms(a.device.index)))
     launch = (thin_launch(m, n, k, bsz, _sms(a.device.index))
-              if gemm_path(m, k, b.stride(2), n) == "thin" else _TILED)
+              if path == "thin" else _TILED)
     err = _fn()(a.data_ptr(), *a.stride(), b.data_ptr(), *b.stride(),
                 out.data_ptr(), bsz, m, n, k, launch["kmax"], launch["cols"],
                 launch["gx"], launch["groups"], launch["rpg"],
                 torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"modmatmul kernel launch failed: CUDA error {err}")
+    return out
+
+
+def colsum(a, b, out, launch: dict):
+    """The column-sum kernel into `out` (B, M, N) as `launch` (plan.
+    colsum_launch's dict) says; a's M-stride must be 1.  Its K splits write
+    (splits, B, M, N) partials that a second kernel combines."""
+    bsz, m, k = a.shape
+    n = b.shape[2]
+    part = out
+    if launch["splits"] > 1:
+        part = torch.empty((launch["splits"], bsz, m, n), dtype=torch.int32,
+                           device=a.device)
+    err = _fn("repro_modmatmul_colsum")(
+        a.data_ptr(), *a.stride(), b.data_ptr(), *b.stride(), out.data_ptr(),
+        part.data_ptr(), bsz, m, n, k, launch["cmax"], launch["kc"],
+        launch["splits"], launch["ctas"],
+        torch.cuda.current_stream(a.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"modmatmul colsum kernel launch failed: CUDA "
+                           f"error {err}")
     return out
 
 

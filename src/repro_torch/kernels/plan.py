@@ -4,17 +4,22 @@ Every launch parameter of the CUDA kernels is decided here, once, and
 passed to csrc/ by the launchers (csrc/ only checks them against the
 kernels' bounds), so the CPU tests reach the code that decides:
 
-- `gemm_path` / `thin_launch`: which modmatmul kernel a GEMM takes, and
-  the thin kernel's instance (`THIN_KMAX`) and grid;
+- `gemm_path` / `thin_launch` / `colsum_launch`: which modmatmul kernel a
+  GEMM takes, the thin kernel's instance (`THIN_KMAX`) and grid, and the
+  column-sum kernel's instance (`COLSUM_CMAX`), K splits and grid;
 - `gradient_plan`, `stage_bytes`, `strip_run`: the gradient kernel's
   accumulator mode, slice height, ring depth and stage size, shared
-  memory, and the strips its CTAs walk.
+  memory, and the strips its CTAs walk;
+- `poly_launch`: poly_eval's kernel (one thread an element, or
+  grid-stride) and its blocks.
 
 It also holds numpy models of device code the CPU cannot run:
 `reduce_p` / `reduce_p58` (csrc/field.cuh's reductions mod p),
 `pass1_terms` (the products a lane of the gradient kernel's pass 1 sums
-before its one reduce) and `slice_copy` (the 16-byte peel of each slice's
-bulk copy).
+before its one reduce), `slice_copy` (the 16-byte peel of each slice's
+bulk copy), `colsum_model` (the column-sum kernel's lane sums and the
+combine of its K splits) and `horner_lazy` (poly_eval's lazy Horner
+step).
 """
 
 from __future__ import annotations
@@ -38,6 +43,13 @@ THIN_THREADS = 256
 # registers of B a thread
 THIN_KMAX = ((7, 4), (8, 4), (16, 4), (17, 2), (24, 2), (32, 2), (48, 1),
              (64, 1))
+COLSUM_MAX_N = 16
+# csrc/modmatmul.cu colsum_kernel instances (N padded to the first that
+# holds it): N itself for X^T y at C = 1 and at a 10-class objective
+COLSUM_CMAX = (1, 2, 4, 8, 10, 16)
+COLSUM_WARPS = 8                    # warp tasks a CTA
+COLSUM_ROWS = 32                    # rows of B a warp stages at once
+COLSUM_TASKS_PER_SM = 1024          # ~16 waves of 64 resident warps
 
 GRAD_THREADS = 512
 GRAD_WARPS = GRAD_THREADS // 32
@@ -47,6 +59,10 @@ MAX_DEGREE = 63                     # ghat's coefficients: static smem
 GRAD_STATIC = 4 * (MAX_DEGREE + 1)  # static shared memory of the kernel
 BAR_BYTES = 64                      # the ring's mbarriers, at the front
 COPY_SLACK = 32                     # a slice rounded out to 16-byte ends
+
+POLY_THREADS = 256
+POLY_EPT = 8                        # elements a poly_eval thread has in flight
+POLY_BLOCKS_PER_SM = 8              # csrc/field_poly.cu __launch_bounds__
 
 
 def reduce_p58(x) -> np.ndarray:
@@ -74,13 +90,21 @@ def reduce_p(x) -> np.ndarray:
 
 # ---------------------------------------------------------------- modmatmul
 
-def gemm_path(m: int, k: int, b_col_stride: int, n: int = 2) -> str:
-    """"thin" (csrc/modmatmul.cu thin_kernel: A staged whole, columns of
-    B in registers) when M <= 64, 1 <= K <= 64 and B's columns are unit
-    stride; else "tiled" (the BM x BN tile kernel, any strides)."""
+def gemm_path(m: int, k: int, b_col_stride: int, n: int = 2,
+              a_m_stride: int | None = None) -> str:
+    """The csrc/modmatmul.cu kernel of a (m, k) @ (k, n) GEMM:
+
+    "thin"    thin_kernel (A staged whole, columns of B in registers) when
+              M <= 64, 1 <= K <= 64 and B's columns are unit stride;
+    "colsum"  colsum_kernel (a split-K column sum of A's rows) when A's
+              M-stride is 1 and N <= 16: X^T y, whose A is the transposed
+              view of the shares;
+    "tiled"   the BM x BN tile kernel (any strides) for the rest."""
     unit = b_col_stride == 1 or n == 1
     if m <= THIN_MAX_M and 1 <= k <= THIN_MAX_K and unit:
         return "thin"
+    if a_m_stride == 1 and 1 <= n <= COLSUM_MAX_N:
+        return "colsum"
     return "tiled"
 
 
@@ -103,6 +127,52 @@ def thin_launch(m: int, n: int, k: int, batch: int, sms: int) -> dict:
     groups = min(m, max(1, -(-(2 * sms) // (gx * batch))))
     rpg = -(-m // groups)
     return dict(kmax=kmax, cols=cols, gx=gx, groups=-(-m // rpg), rpg=rpg)
+
+
+@functools.lru_cache(maxsize=None)
+def colsum_launch(m: int, n: int, k: int, batch: int, sms: int) -> dict:
+    """How csrc/modmatmul.cu's colsum_kernel runs a (batch, m, k) @ (batch,
+    k, n) GEMM on a card of `sms` SMs.  A warp task is (batch, 32
+    consecutive columns, one split of K):
+
+    cmax    its instance: the first of COLSUM_CMAX with N <= CMAX;
+    kc      rows of K a split (a multiple of COLSUM_ROWS), at most
+            NO_REDUCE_TERMS: a lane sums kc products before its one reduce;
+    splits  ceil(K / kc): enough for ~COLSUM_TASKS_PER_SM tasks an SM
+            (whole waves to within a few percent), at most one a 32-row
+            block of K;
+    ctas    CTAs of COLSUM_WARPS tasks."""
+    if not 1 <= n <= COLSUM_MAX_N or k < 1 or m < 1 or batch < 1:
+        raise ValueError(f"colsum GEMM takes 1 <= N <= {COLSUM_MAX_N}, "
+                         f"K, M, batch >= 1; got N={n}, K={k}, M={m}, "
+                         f"batch={batch}")
+    cmax = next(c for c in COLSUM_CMAX if n <= c)
+    per_split = batch * -(-m // 32)
+    blocks = -(-k // COLSUM_ROWS)
+    want = -(-(COLSUM_TASKS_PER_SM * sms) // per_split)
+    splits = min(blocks, max(want, -(-k // NO_REDUCE_TERMS)))
+    kc = -(-blocks // splits) * COLSUM_ROWS
+    splits = -(-k // kc)
+    return dict(cmax=cmax, kc=kc, splits=splits,
+                ctas=-(-(per_split * splits) // COLSUM_WARPS))
+
+
+def colsum_model(a, b, kc: int) -> tuple:
+    """numpy model of colsum_kernel and colsum_combine: a (batch, m, k),
+    b (batch, k, n) field values.  Each split of kc rows gives every
+    (batch, column, class) a lane's uint64 sum of at most kc products,
+    reduced once with reduce_p; the combine sums the splits' partials
+    (each < p) in uint64 and reduces.  Returns (the product mod p, the
+    largest lane sum as a Python int)."""
+    a = np.asarray(a, dtype=np.uint64)
+    b = np.asarray(b, dtype=np.uint64)
+    k = a.shape[2]
+    parts, top = [], 0
+    for k0 in range(0, k, kc):
+        sums = a[:, :, k0:k0 + kc] @ b[:, k0:k0 + kc]      # exact below 2^64
+        top = max(top, int(sums.max()))
+        parts.append(reduce_p(sums))
+    return reduce_p(np.sum(parts, axis=0, dtype=np.uint64)), top
 
 
 # ----------------------------------------------------------- coded gradient
@@ -213,3 +283,40 @@ def slice_copy(base: int, start: int, nbytes: int, total: int) -> dict:
     return dict(lead=a_s - g0, body_lo=lo, body_bytes=hi - lo,
                 head_words=max(0, lo - a_s) // 4,
                 tail_words=max(0, a_e - hi) // 4)
+
+
+# ---------------------------------------------------------------- poly_eval
+
+def poly_launch(length: int, sms: int) -> dict:
+    """Which csrc/field_poly.cu kernel evaluates `length` elements, and on
+    how many blocks of POLY_THREADS:
+
+    ept 1         poly_eval_short, one thread an element, when that takes
+                  at most one wave (sms x POLY_BLOCKS_PER_SM blocks);
+    ept POLY_EPT  poly_eval_long, the grid-stride kernel: one block a
+                  chunk of POLY_THREADS * POLY_EPT elements, at most one
+                  full wave, so the blocks' chunk counts differ by at
+                  most one."""
+    wave = sms * POLY_BLOCKS_PER_SM
+    rows = -(-length // POLY_THREADS)
+    if rows <= wave:
+        return dict(ept=1, blocks=max(1, rows))
+    return dict(ept=POLY_EPT,
+                blocks=min(-(-length // (POLY_THREADS * POLY_EPT)), wave))
+
+
+def horner_lazy(z, coeffs) -> np.ndarray:
+    """sum_t coeffs[t] z^t mod p as csrc/field_poly.cu evaluates it: g
+    stays in [0, 2p) between steps, g * z + c < 2^54 is folded twice (the
+    second fold in 32 bits), and one conditional subtract ends it."""
+    z = np.asarray(z, dtype=np.uint64)
+    co = [np.uint64(int(c)) for c in coeffs]
+    g = np.full(z.shape, co[-1], np.uint64)
+    for c in reversed(co[:-1]):
+        x = g * z + c
+        assert (x < np.uint64(1 << 54)).all()
+        y = (x & np.uint64(MASK26)) + np.uint64(5) * (x >> np.uint64(26))
+        assert (y < np.uint64(1 << 31)).all()
+        g = (y & np.uint64(MASK26)) + np.uint64(5) * (y >> np.uint64(26))
+        assert (g < np.uint64(2 * P)).all()
+    return np.where(g >= np.uint64(P), g - np.uint64(P), g)

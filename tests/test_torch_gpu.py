@@ -124,6 +124,23 @@ def test_poly_eval_matches_plain(cuda, shape, degree):
     _eq(fp.poly_eval(z.to(cuda), co.to(cuda)), ref.poly_eval(z, co))
 
 
+@pytest.mark.parametrize("length,degree,offset,worst", [
+    (3_000_001, 7, 0, False),   # grid-stride, past one wave of chunks
+    (5000, 63, 1, False),       # the most coefficients; z 4 bytes off
+    (4099, 0, 0, False),        # a constant
+    (2049, 7, 0, True),         # z and every coefficient p - 1
+    (2_500_003, 63, 1, False),  # the grid-stride kernel at the edges
+    (2_500_003, 7, 0, True)])
+def test_poly_eval_grid_stride_and_edges(cuda, length, degree, offset, worst):
+    rng = np.random.default_rng(length + degree)
+    flat, co = _fld(rng, offset + length), _fld(rng, degree + 1)
+    if worst:
+        flat.fill_(P - 1)
+        co.fill_(P - 1)
+    z = flat.to(cuda)[offset:]
+    _eq(fp.poly_eval(z, co.to(cuda)), ref.poly_eval(flat[offset:], co))
+
+
 def test_fit_siloed_golden_on_the_card(cuda, monkeypatch):
     monkeypatch.setenv("REPRO_FUSED_STEP", "0")
     ops.reset_launches()
@@ -221,3 +238,61 @@ def test_gradient_kernels_at_p_minus_1_past_d_32768(cuda):
     got = fs.fused_step(*[a.to(cuda) for a in (x, w, co, *rest)], **kw)
     for g, w_ in zip(got, ref.fused_step(x, w, co, *rest, **kw)):
         _eq(g, w_)
+
+
+def _xty_operands(rng, b, m, k, n, offset=0, worst=False, b_strided=False):
+    """A = the transposed view of (b, k, m) "shares" starting `offset`
+    words into their buffer, and B (b, k, n) "targets" (class-major with
+    b_strided); x = y = p - 1 with `worst`.  Returns CPU tensors."""
+    flat = _fld(rng, offset + b * k * m)
+    y = _fld(rng, b, n, k).transpose(1, 2) if b_strided else _fld(rng, b, k, n)
+    if worst:
+        flat.fill_(P - 1)
+        y.fill_(P - 1)
+    return flat, y
+
+
+def _on_card(flat, y, cuda, offset, b, m, k):
+    return flat.to(cuda)[offset:].view(b, k, m).transpose(1, 2), y.to(cuda)
+
+
+@pytest.mark.parametrize("b,m,k,n,offset,worst,b_strided", [
+    (3, 33, 65, 1, 0, False, False),      # K just past the thin path
+    (2, 257, 4097, 2, 0, False, False),   # K past one lane's 4096 terms
+    (1, 3073, 8193, 10, 0, False, False),  # a batch of 1, past 8192
+    (2, 95, 9019, 16, 1, False, False),   # A 4 bytes off a 16-byte line
+    (1, 129, 40000, 1, 0, True, False),   # x = y = p - 1 at the largest K
+    (13, 24, 390, 10, 0, False, False),   # mnist10_like's setup
+    (2, 100, 20, 3, 0, False, False),     # one split, written directly
+    (2, 70, 300, 5, 0, False, True)])     # B class-major (strided)
+def test_modmatmul_colsum_matches_plain(cuda, b, m, k, n, offset, worst,
+                                        b_strided):
+    rng = np.random.default_rng(b * m + k + n)
+    flat, y = _xty_operands(rng, b, m, k, n, offset, worst, b_strided)
+    xt, yc = _on_card(flat, y, cuda, offset, b, m, k)
+    assert mm.path_of(xt, yc) == "colsum"
+    assert yc.stride() == y.stride()
+    want = ref.modmatmul_batched(flat[offset:].view(b, k, m).transpose(1, 2),
+                                 y)
+    _eq(mm.modmatmul_batched(xt, yc), want)
+
+
+@pytest.mark.parametrize("b,m,k,n,kc,worst", [
+    (1, 40, 8193, 2, 4096, True),     # a lane sums 4096 products of p - 1
+    (2, 70, 4096, 1, 4096, True),     # the same in one split: no combine
+    (2, 65, 1000, 10, 100, False)])   # kc not a multiple of 32
+def test_modmatmul_colsum_at_its_term_bound(cuda, b, m, k, n, kc, worst):
+    """Splits the plan picks only for far larger batches: kc at
+    NO_REDUCE_TERMS with every product near 2^52, and a ragged 32-row
+    block at the end of every split."""
+    from repro_torch.kernels import plan
+    rng = np.random.default_rng(k + kc)
+    flat, y = _xty_operands(rng, b, m, k, n, worst=worst)
+    xt, yc = _on_card(flat, y, cuda, 0, b, m, k)
+    splits = -(-k // kc)
+    launch = dict(cmax=next(c for c in plan.COLSUM_CMAX if n <= c), kc=kc,
+                  splits=splits,
+                  ctas=-(-(b * -(-m // 32) * splits) // plan.COLSUM_WARPS))
+    out = torch.empty((b, m, n), dtype=torch.int32, device=cuda)
+    want = ref.modmatmul_batched(flat.view(b, k, m).transpose(1, 2), y)
+    _eq(mm.colsum(xt, yc, out, launch), want)

@@ -65,6 +65,23 @@ def test_modmatmul_batched_plain_matches_pallas(bmkn):
                                                 (bsz, m, k)), jnp.asarray(b)))
 
 
+@pytest.mark.parametrize("bsz,k,d,c", [(3, 100, 40, 1), (2, 70, 24, 10)])
+def test_xty_colsum_model_and_plain_match_pallas(bsz, k, d, c):
+    """X^T y as setup forms it: the transposed view of (N, m, d) shares
+    times (N, m, C) targets.  The port sends it to the column-sum kernel;
+    its numpy model (plan.colsum_model, the kernel's lane sums and split
+    combine) and the plain version equal the JAX package's kernel."""
+    rng = np.random.default_rng(bsz * k + c)
+    x, y = _fld(rng, bsz, k, d), _fld(rng, bsz, k, c)
+    xt = _t(x).transpose(1, 2)
+    assert mm.path_of(xt, _t(y)) == "colsum"
+    want = jops.modmatmul_batched(jnp.swapaxes(jnp.asarray(x), 1, 2),
+                                  jnp.asarray(y), force_pallas=True)
+    _eq(ref.modmatmul_batched(xt, _t(y)), want)
+    launch = plan.colsum_launch(d, c, k, bsz, 132)
+    _eq(plan.colsum_model(x.transpose(0, 2, 1), y, launch["kc"])[0], want)
+
+
 def _operands(rng, n, m, d, c, degree):
     return (_fld(rng, n, m, d), _fld(rng, n, d, c), _fld(rng, degree + 1),
             _fld(rng, n), _fld(rng, n), _fld(rng, n), _fld(rng, n, d, c),

@@ -2,8 +2,11 @@
 
 The CUDA kernels run only on a card; every launch parameter they take is
 decided in kernels/plan.py by pure functions, checked here: the reduction
-mod p against `%`, the field GEMM's thin-path predicate, instance and grid
-at every main-path shape, the gradient kernel's plan (mode, slice height,
+mod p against `%`, the field GEMM's path at every main-path shape, the
+thin kernel's instance and grid, the column-sum kernel's instance, K
+splits and grid and a numpy model of its lane sums and split combine
+(at random and at p - 1 values), poly_eval's grid and lazy Horner step,
+the gradient kernel's plan (mode, slice height,
 ring, shared memory, the no-reduce bounds), its strip split, the 16-byte
 peel of each slice's bulk copy, and a numpy model of the gradient kernel
 (its lanes, reductions and strip/flush schedule) against the plain coded
@@ -92,9 +95,14 @@ def test_thin_row_groups_fill_the_card_at_narrow_n():
 
 
 def test_other_gemms_take_the_tiled_path():
-    # X^T y: (d, m) @ (m, 1) per client, K = 9019
+    # X^T y: (d, m) @ (m, 1) per client, K = 9019, A the transposed view of
+    # the (N, m, d) shares: the column-sum path (the tiled path before it)
+    xt = torch.empty((N, 9019, D), dtype=torch.int32).transpose(1, 2)
     y = torch.empty((N, 9019, 1), dtype=torch.int32)
-    assert plan.gemm_path(D, 9019, y.stride(2), 1) == "tiled"
+    assert plan.gemm_path(D, 9019, y.stride(2), 1, xt.stride(1)) == "colsum"
+    # A's K-stride 1 (a contiguous A), or N > 16: still tiled
+    assert plan.gemm_path(D, 9019, 1, 1, 9019) == "tiled"
+    assert plan.gemm_path(D, 9019, 1, 17, 1) == "tiled"
     assert plan.gemm_path(8, 65, 1, 100) == "tiled"              # K > 64
     assert plan.gemm_path(65, 8, 1, 100) == "tiled"              # M > 64
     assert plan.gemm_path(8, 8, _b_stride(8, 100, True), 100) == "tiled"
@@ -107,6 +115,90 @@ def test_other_gemms_take_the_tiled_path():
     for k in (0, 65):
         with pytest.raises(ValueError):
             plan.thin_launch(1, 100, k, 1, 132)
+
+
+def _xty(n, m, d, c):
+    """X^T y's operands as setup forms them: the transposed view of the
+    (N, m, d) shares and the (N, m, C) targets (a view (N, m, 1) at C = 1)."""
+    xt = torch.empty((n, m, d), dtype=torch.int32).transpose(1, 2)
+    y = torch.empty((n, m, c), dtype=torch.int32)
+    return xt, y
+
+
+@pytest.mark.parametrize("what,n,m,d,c", [
+    ("cifar10_case2", N, 9019, D, 1),
+    ("cifar10_case2, a 10-class objective", N, 9019, D, 10),
+    ("mnist10_like", 13, 390, 24, 10),
+    ("cifar10_like", 15, 480, 96, 1),
+    ("smoke", 13, 96, 12, 1)])
+def test_x_t_y_takes_the_colsum_path(what, n, m, d, c):
+    from repro_torch.kernels import modmatmul as mm
+    xt, y = _xty(n, m, d, c)
+    assert mm.path_of(xt, y) == "colsum", what
+    assert mm.path_of(xt.contiguous(), y) == "tiled", what    # K-stride 1
+
+
+def _tasks(m, k, batch, launch):
+    return batch * -(-m // 32) * launch["splits"]
+
+
+@pytest.mark.parametrize("m,n,k,batch", [
+    (D, 1, 9019, N), (D, 10, 9019, N), (24, 10, 390, 13), (33, 1, 65, 3),
+    (257, 2, 4097, 2), (D, 10, 8193, 1), (95, 16, 9019, 2),
+    (129, 1, 40000, 1), (100, 3, 20, 2), (70, 5, 300, 2)])
+def test_colsum_launch_covers_k_and_the_tasks(m, n, k, batch):
+    launch = plan.colsum_launch(m, n, k, batch, 132)
+    kc, splits = launch["kc"], launch["splits"]
+    assert launch["cmax"] == next(c for c in plan.COLSUM_CMAX if n <= c)
+    assert kc % plan.COLSUM_ROWS == 0 and kc <= plan.NO_REDUCE_TERMS
+    assert splits * kc >= k > (splits - 1) * kc
+    # csrc/modmatmul.cu repro_modmatmul_colsum's check of the grid
+    tasks = _tasks(m, k, batch, launch)
+    assert launch["ctas"] * plan.COLSUM_WARPS >= tasks > \
+        (launch["ctas"] - 1) * plan.COLSUM_WARPS
+
+
+def test_colsum_launch_fills_the_card_at_cifar10_case2():
+    """X^T y at cifar10_case2: 50 x 97 column groups a split; ~26 splits
+    of 352 rows give ~15 waves of 8-warp CTAs at 8 CTAs an SM, so the last
+    wave's imbalance is a few percent."""
+    launch = plan.colsum_launch(D, 1, 9019, N, 132)
+    assert launch == dict(cmax=1, kc=352, splits=26, ctas=15763)
+    assert launch["ctas"] / (132 * 8) > 14
+    assert plan.colsum_launch(D, 10, 9019, N, 132)["cmax"] == 10
+    for n, k in ((17, 100), (0, 100), (1, 0)):
+        with pytest.raises(ValueError):
+            plan.colsum_launch(D, n, k, N, 132)
+
+
+@pytest.mark.parametrize("b,m,k,n,kc", [
+    (3, 33, 65, 1, None), (2, 57, 4097, 2, None), (1, 40, 8193, 10, None),
+    (2, 19, 9019, 16, None), (1, 7, 40000, 1, None), (2, 65, 1000, 10, 100),
+    (1, 40, 8193, 3, 4096), (2, 100, 20, 3, None)])
+def test_colsum_model_matches_plain(b, m, k, n, kc):
+    rng = np.random.default_rng(b * m + k + n)
+    a = rng.integers(0, P, size=(b, m, k), dtype=np.int64).astype(np.int32)
+    y = rng.integers(0, P, size=(b, k, n), dtype=np.int64).astype(np.int32)
+    kc = kc or plan.colsum_launch(m, n, k, b, 132)["kc"]
+    want = ref.modmatmul_batched(torch.from_numpy(a), torch.from_numpy(y))
+    np.testing.assert_array_equal(plan.colsum_model(a, y, kc)[0],
+                                  want.numpy())
+
+
+@pytest.mark.parametrize("k,kc", [(8193, 4096), (4096, 4096), (40000, 352)])
+def test_colsum_model_at_p_minus_1(k, kc):
+    """x = y = p - 1: a lane of kc = NO_REDUCE_TERMS rows sums 4096
+    products to within 2^42 of 2^64 (one more would wrap), and the splits'
+    combine of up to 114 partials; the model still equals the plain
+    product."""
+    a = np.full((1, 5, k), P - 1, np.int32)
+    y = np.full((1, k, 2), P - 1, np.int32)
+    got, top = plan.colsum_model(a, y, kc)
+    assert top == min(k, kc) * (P - 1) ** 2 < 1 << 64
+    if kc == plan.NO_REDUCE_TERMS:
+        assert top + (P - 1) ** 2 >= 1 << 64
+    want = ref.modmatmul_batched(torch.from_numpy(a), torch.from_numpy(y))
+    np.testing.assert_array_equal(got, want.numpy())
 
 
 @pytest.mark.parametrize("m,d,c,want", [
@@ -327,3 +419,36 @@ def test_gradient_model_at_p_minus_1_past_d_32768():
     want = ref.coded_gradient_matrix(torch.from_numpy(x), torch.from_numpy(w),
                                      torch.from_numpy(co))
     np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("length,want", [
+    (45100, dict(ept=1, blocks=177)), (1, dict(ept=1, blocks=1)),
+    (256 * 1056, dict(ept=1, blocks=1056)),
+    (256 * 1056 + 1, dict(ept=8, blocks=133)),
+    (1 << 26, dict(ept=8, blocks=1056))])
+def test_poly_launch_is_at_most_one_wave(length, want):
+    """poly_eval: one thread an element while that fits one wave (the 8
+    blocks an SM the long kernel's launch bounds keep resident), so one
+    step's z (45,100) spreads over 177 blocks; past that the grid-stride
+    kernel's blocks walk equal 2048-element chunk counts to within one."""
+    launch = plan.poly_launch(length, 132)
+    assert launch == want
+    per_block = plan.POLY_THREADS * launch["ept"]
+    chunks = -(-length // per_block)
+    per = [len(range(b, chunks, launch["blocks"]))
+           for b in range(launch["blocks"])]
+    assert max(per) - min(per) <= 1 and min(per) >= 1
+
+
+@pytest.mark.parametrize("degree", [0, 1, 3, 7, 63])
+def test_horner_lazy_matches_plain(degree):
+    """The kernel's lazy step (g in [0, 2p) between steps, two folds) at
+    random values and at the edges: z and every coefficient p - 1, 0, 1."""
+    rng = np.random.default_rng(degree)
+    z = np.concatenate([rng.integers(0, P, 5000), [0, 1, P - 1, P - 2]])
+    for co in (rng.integers(0, P, degree + 1), np.full(degree + 1, P - 1),
+               np.arange(degree + 1) % 2):
+        want = ref.poly_eval(torch.from_numpy(z.astype(np.int32)),
+                             torch.from_numpy(co.astype(np.int32)))
+        np.testing.assert_array_equal(plan.horner_lazy(z, co), want.numpy())
+
