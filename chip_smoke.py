@@ -22,13 +22,20 @@ Phases (a failed phase fails the run; no failure is caught):
               and 10, one adversary's offset, and x = w = p - 1 at
               d = 40000 (pass 1's lane sums past 2^58); poly_eval on both
               kernels (short; grid-stride past one wave), at degrees 0 to 63, z 4 bytes off and
-              z = every coefficient = p - 1
+              z = every coefficient = p - 1; the tiled GEMM at the other
+              paths' shapes: the MPC baseline's Z = X W (16, 3006, 3073) @
+              (16, 3073, C), C = 1 and 10, and serving's (B, 3073) @ (3073,
+              50), B = 1, 32, 128 (--quick: cuts of both)
   3. golden   api.fit on cuda reproduces the smoke goldens (weights, share
               and history sha256) and the pinned mnist10_like /
               linreg_smoke / cifar10_like / smoke_straggler shas of the JAX
               package's runs, on the fused schedule and on the siloed one
               (REPRO_FUSED_STEP=0); smoke_straggler under a fault plan
-              gives the JAX package's shas on both schedules
+              gives the JAX package's shas on both schedules; the MPC
+              baseline (bh08, bgw) and three secure_agg aggregation rounds
+              give the JAX package's pinned shas (MPC_SHAS, AGG_SHAS), and
+              smoke serving of a copml and a float result equals
+              reference_scores
   4. full     api.fit("cifar10_case2", "copml", "jit", iters=5) on the card
               at the paper's full width (N=50, m=9019, d=3073, K=10, T=7);
               kernel launch counts are reset just before it and read just
@@ -47,6 +54,21 @@ Phases (a failed phase fails the run; no failure is caught):
               weights and history equal to the fault-free run's, and the
               fused step's adversary offset non-zero at steps 3 and 4,
               its GEMMs by shape and path as in phase 4
+  7. protocols  api.fit(FULL_WORKLOAD, p, "jit", iters=5) for p in
+              mpc_baseline, secure_agg, float, poly_float, each with its
+              counts reset just before and read just after: setup s,
+              ms/iter, peak memory, a profile of two more steps (device ms
+              per step, idle share, kernels per step), accuracy; the GEMMs
+              of mpc_baseline (whose Z = X W takes the tiled kernel) and
+              secure_agg by shape and path; float's eager (float64) run
+              within 1e-3 of its jit (float32) one; copml's and
+              mpc_baseline's device ms per step beside cost_model's
+              MODELLED speedup (the single card simulates compute only)
+  8. serve    api.serve on the full-width copml result (re-shared, never
+              opened): 1024 eval queries at batch 1, 32 and 128, every
+              window's field logits equal to reference_scores of the
+              opened model bit for bit; queries/s, encode s, device ms per
+              window; the float result (fallback encode) at batch 128
 
 Output: one {"kernels": [...]} JSON line, the card's name and power limit
 (nvidia-smi), then {"ok": true, "device": {...}} as the last line.
@@ -55,6 +77,7 @@ the ptxas report, a profile of two steps) go to chip_smoke.json in OUT_DIR.
 
   python3 chip_smoke.py            # every phase (needs one CUDA card)
   python3 chip_smoke.py --quick    # build, ragged kernel checks, goldens
+      # (phases 1-3)
   python3 chip_smoke.py --compare OTHER/src   # the redesigned kernels of
       # another checkout (e.g. the parent commit's) and of this one, timed
       # in turns other, this, this, other; writes chiprun_out/compare.json
@@ -105,6 +128,24 @@ FAULT_SCHEDULE = dict(stragglers={1: (0, 1), 4: (2,)}, dropouts={2: (7,)},
 FAULTY_SHAS = (
     "239bb5c60a80c270b9417cf6025b80b18ef8a8dcb900ecda07ab9b289593352d",
     "d0a119966962c28edbfed2d3e6d6dffc3fc2413e49d189dc8148748d4147b86a")
+# smoke, key 0, 3 iterations of the JAX package's MpcBaseline (setup on
+# split(key)[0], step t on fold_in(split(key)[1], t)), per scheme: (shares
+# sha, opened weights sha); tests/test_torch_baselines.py pins them to the
+# JAX package's output
+MPC_SHAS = {
+    "bh08": (
+        "019dbdc15dc77aff99326e28e7d464b219bb396a9c1c72adfc7dc19203d674b6",
+        "42186769463d1e557bc491edeb7d6b19f2f6622ec9f387de55eccaa4b0e47a52"),
+    "bgw": (
+        "425edf1e754c9f621b31e5f6047416c970ef60aebd9f71f669fd41569f6666b3",
+        "42186769463d1e557bc491edeb7d6b19f2f6622ec9f387de55eccaa4b0e47a52"),
+}
+# three secure_agg aggregation rounds at smoke's shape (N=13, T=1, d=12) on
+# seeded float32 gradients (agg_rounds): (holder sum shares sha, opened
+# means sha); tests/test_torch_protocols.py pins them to the JAX package's
+AGG_SHAS = (
+    "83fc0f624b081f02e9f2d29c7acfa322fd5943b71d14a64e562c619f4bfa807e",
+    "25906cd78ab428db0f7949c1a4bbd8c042e072646ed0cf8ec102480a13e8aaa6")
 FULL_WORKLOAD = "cifar10_case2"
 FULL_ITERS = 5
 
@@ -114,6 +155,13 @@ INT32_OPS_PER_S = 67e12        # H100 SXM 32-bit CUDA-core rate (fp32 table)
 # the kernels each full-width path launches (every one at least once)
 FUSED_PATH = ("modmatmul", "modmatmul_batched", "fused_step")
 SILOED_PATH = ("modmatmul", "modmatmul_batched", "coded_gradient_batched")
+# the other protocols' and serving's paths (float GD runs no field kernel)
+PROTOCOL_PATHS = {"mpc_baseline": ("modmatmul", "modmatmul_batched"),
+                  "secure_agg": ("modmatmul",), "float": (),
+                  "poly_float": ()}
+SERVE_PATH = ("modmatmul",)
+SERVE_BATCHES = (1, 32, 128)
+SERVE_QUERIES = 1024
 
 TPU_KERNEL = {
     "modmatmul": "src/repro/kernels/modmatmul.py:70",
@@ -142,6 +190,55 @@ def log(*args):
 def sha(arr, dtype) -> str:
     import numpy as np
     return hashlib.sha256(np.asarray(arr, dtype).tobytes()).hexdigest()
+
+
+def mpc_smoke(scheme: str, device) -> tuple:
+    """(shares sha, weights sha) of MpcBaseline on smoke, key 0, 3
+    iterations (MPC_SHAS)."""
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.core import baselines
+    wl = api.get_workload("smoke")
+    x, y, _, _ = wl.data()
+    mb = baselines.MpcBaseline(wl.cfg, wl.m, wl.d, scheme=scheme,
+                               device=device)
+    state, w = mb.train(0, x, y, 3)
+    return (sha(state.w_shares.cpu().numpy(), np.int32),
+            sha(w.cpu().numpy(), np.float32))
+
+
+def agg_gradients(np, t: int, n: int, d: int):
+    """Round t's float32 gradients (N, d) for agg_rounds: normal with
+    scale 4, so some pass the clip of 8."""
+    return np.random.default_rng(t).normal(0.0, 4.0, (n, d)).astype(
+        np.float32)
+
+
+def agg_rounds(device) -> tuple:
+    """Three aggregation rounds at smoke's shape on agg_gradients, round t
+    on fold_in(PRNGKey(0), t), round 2 reconstructing from holders (3, 5):
+    (sha of the holders' sum shares (3, N, d), sha of the means (3, d))."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core import random as jrandom
+    from repro_torch.core import secure_agg
+    wl = api.get_workload("smoke")
+    cfg = secure_agg.SecureAggConfig(n_clients=wl.n_clients, t=wl.cfg.t)
+    sel = secure_agg.selection_arrays(cfg, [(3, 5)], device)
+    sums, means = [], []
+    for t in range(3):
+        g = torch.from_numpy(agg_gradients(np, t, cfg.n_clients, wl.d))
+        keys = jrandom.split(jrandom.fold_in(jrandom.PRNGKey(0), t),
+                             cfg.n_clients + 1)
+        shares = secure_agg.encode_all(keys[:cfg.n_clients], g.to(device),
+                                       cfg)
+        sums.append(secure_agg.aggregate_shares(shares))
+        means.append(secure_agg.decode_mean(
+            keys[cfg.n_clients], sums[-1], cfg, None,
+            (sel[0][0], sel[1][0]) if t == 2 else None))
+    return (sha(torch.stack(sums).cpu().numpy(), np.int32),
+            sha(torch.stack(means).cpu().numpy(), np.float32))
 
 
 class Checker:
@@ -510,18 +607,18 @@ def phase_kernels(ck: Checker, quick: bool) -> dict:
     return rows
 
 
-def profile_steps(torch, proto, state) -> tuple:
-    """Two more steps of `proto` from `state` under torch.profiler: wall
-    and device ms per step, the device's idle share and its kernels per
-    step, and the table of device time by kernel."""
+def profile_steps(torch, step, state) -> tuple:
+    """Two more steps `state = step(key, state)` (e.g. a protocol's
+    iteration) from `state` under torch.profiler: wall and device ms per
+    step, the device's idle share and its kernels per step, and the table
+    of device time by kernel."""
     from repro_torch.core import random as jrandom
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for t in range(2):
-            state = proto.iteration(jrandom.fold_in(jrandom.PRNGKey(1), t),
-                                    state)
+            state = step(jrandom.fold_in(jrandom.PRNGKey(1), t), state)
         torch.cuda.synchronize()
         prof_wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -551,20 +648,24 @@ def fused_operands(ck: Checker, n, m, d, c, degree) -> dict:
 
 class ShapeLog:
     """Counts every field-GEMM call of a fit by (phase, op, shapes,
-    strides); the phase is "setup" inside Copml.setup and "step" after."""
+    strides); the phase is "setup" inside `owner`.setup (Copml's by
+    default; None: no setup phase) and "step" after."""
 
     OPS = ("modmatmul", "modmatmul_batched")
 
-    def __init__(self):
+    def __init__(self, owner="copml"):
         self.calls: collections.Counter = collections.Counter()
         self.phase = "step"
+        self.owner = owner
 
     def __enter__(self):
-        from repro_torch.core import protocol
+        from repro_torch.core import baselines, protocol
         from repro_torch.kernels import ops
-        self._ops, self._proto = ops, protocol
+        self._ops = ops
+        self._cls = {"copml": protocol.Copml,
+                     "mpc_baseline": baselines.MpcBaseline,
+                     None: None}[self.owner]
         self._real = {name: getattr(ops, name) for name in self.OPS}
-        self._setup = protocol.Copml.setup
 
         def spy(name):
             def call(a, b):
@@ -573,22 +674,26 @@ class ShapeLog:
                 return self._real[name](a, b)
             return call
 
-        def setup(proto, *args, **kw):
-            self.phase = "setup"
-            try:
-                return self._setup(proto, *args, **kw)
-            finally:
-                self.phase = "step"
-
         for name in self.OPS:
             setattr(ops, name, spy(name))
-        protocol.Copml.setup = setup
+        if self._cls is not None:
+            self._setup = self._cls.setup
+
+            def setup(proto, *args, **kw):
+                self.phase = "setup"
+                try:
+                    return self._setup(proto, *args, **kw)
+                finally:
+                    self.phase = "step"
+
+            self._cls.setup = setup
         return self
 
     def __exit__(self, *exc):
         for name in self.OPS:
             setattr(self._ops, name, self._real[name])
-        self._proto.Copml.setup = self._setup
+        if self._cls is not None:
+            self._cls.setup = self._setup
 
 
 GEMM_TIMES: dict = {}          # (op, shapes, strides) -> (device ms, bound)
@@ -722,7 +827,7 @@ def phase_full(ck: Checker, np) -> tuple:
 
     # a profile of two more steps from the final state: device time by kernel
     proto = api.protocols.driver(wl, torch.device("cuda"))
-    profiled, table = profile_steps(torch, proto, res.state)
+    profiled, table = profile_steps(torch, proto.iteration, res.state)
     gemms = gemm_table(ck, shapes, iters)
     log_gemm_table("fused", gemms)
     no_tiled_gemm(gemms)
@@ -867,6 +972,270 @@ def phase_kernels_siloed(ck: Checker, quick: bool) -> dict:
     return rows
 
 
+def phase_kernels_protocols(ck: Checker, quick: bool) -> None:
+    """The tiled GEMM at the shapes the other paths give it, against the
+    plain version (CPU copies, exact), timed by device time with its bound:
+    the MPC baseline's Z = X W, a K-contiguous (N_g, m/3, d) share tensor
+    times (N_g, d, C) at cifar10_case2 (16, 3006, 3073) with C = 1 and 10,
+    and serving's packed (B, d) @ (d, N) at B in SERVE_BATCHES.  --quick
+    checks cuts of both shapes only."""
+    torch = ck.torch
+    from repro_torch.kernels import modmatmul as mm
+    from repro_torch.kernels import ref
+    ng, mg, d, n_cl = (3, 301, 3073, 50) if quick else (16, 3006, 3073, 50)
+    for c in (1, 10):
+        x, w = ck.field(ng, mg, d), ck.field(ng, d, c)
+        assert mm.path_of(x, w) == "tiled", (x.shape, w.shape)
+        ck.compare("modmatmul_batched", mm.modmatmul_batched(x, w),
+                   ref.modmatmul_batched(x.cpu(), w.cpu()),
+                   f"tiled MPC baseline Z ({ng},{mg},{d})@({ng},{d},{c})")
+        if not quick:
+            fn = (lambda a, b: lambda: mm.modmatmul_batched(a, b))(x, w)
+            bb, by = bound(4.0 * (x.numel() + w.numel() + ng * mg * c),
+                           2.0 * x.numel() * c)
+            ck.rows.append(dict(
+                kernel="modmatmul_batched", path="tiled",
+                what=f"MPC baseline Z = X W C={c} (per group, per step)",
+                shape=f"({ng},{mg},{d})@({ng},{d},{c})",
+                ms=ck.time_ms(fn, 10), device_ms=device_ms(torch, fn, 10),
+                plain_ms=ck.time_ms(
+                    lambda: ref.modmatmul_batched(x, w), 1),
+                bound_ms=bb, bound_by=by))
+        del x, w
+    torch.cuda.empty_cache()
+    for b in SERVE_BATCHES:
+        a, w = ck.field(b, d), ck.field(d, n_cl)
+        assert mm.path_of(a[None], w[None]) == "tiled"
+        ck.compare("modmatmul", mm.modmatmul(a, w),
+                   ref.modmatmul(a.cpu(), w.cpu()),
+                   f"tiled serving ({b},{d})@({d},{n_cl})")
+        if not quick:
+            fn = (lambda a_, w_: lambda: mm.modmatmul(a_, w_))(a, w)
+            bb, by = bound(4.0 * (a.numel() + w.numel() + b * n_cl),
+                           2.0 * b * d * n_cl)
+            ck.rows.append(dict(
+                kernel="modmatmul", path="tiled",
+                what=f"serving score GEMM, batch {b}",
+                shape=f"({b},{d})@({d},{n_cl})", ms=ck.time_ms(fn, 50),
+                device_ms=device_ms(torch, fn, 50),
+                plain_ms=ck.time_ms(lambda: ref.modmatmul(a, w), 3),
+                bound_ms=bb, bound_by=by))
+    log(f"kernels: tiled GEMM checks at the MPC baseline's and serving's "
+        f"shapes passed {dict(ck.checks)}")
+
+
+def phase_golden_protocols(np) -> None:
+    """The pinned MPC baseline (bh08, bgw) and aggregation-round shas on
+    the card, and smoke serving bit-exact against reference_scores."""
+    import torch
+    from repro_torch import api
+    from repro_torch.serve import coded
+    cuda = torch.device("cuda")
+    for scheme, want in MPC_SHAS.items():
+        got = mpc_smoke(scheme, cuda)
+        assert got == want, (scheme, got)
+    assert agg_rounds(cuda) == AGG_SHAS, "aggregation round shas"
+    wl = api.get_workload("smoke")
+    x = np.asarray(wl.eval_set()[0], np.float32)
+    for protocol in ("copml", "float"):
+        res = api.fit(wl, protocol, "jit", key=0, iters=10, device="cuda")
+        srv = api.serve(wl, res, "jit", batch_size=32, device="cuda")
+        assert srv.model.from_shares == (protocol == "copml")
+        np.testing.assert_array_equal(
+            srv.score_field(x),
+            coded.reference_scores(res.weights, x, wl.cfg).numpy())
+    log("golden: the MPC baseline (bh08, bgw) and aggregation-round shas "
+        "reproduced on cuda; smoke serving equals reference_scores")
+
+
+def fit_protocol(ck: Checker, protocol: str, engine: str = "jit",
+                 shape_log=None) -> tuple:
+    """api.fit(FULL_WORKLOAD, protocol, engine, iters=FULL_ITERS) on the
+    card with the launch counts reset just before and read just after.
+    Returns (result, counts, peak bytes above the fit's start)."""
+    torch = ck.torch
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    wl = api.get_workload(FULL_WORKLOAD)
+    wl.client_data()                       # dataset build is set-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    if shape_log is None:
+        res = api.fit(wl, protocol, engine, key=0, iters=FULL_ITERS,
+                      device="cuda")
+    else:
+        with shape_log:
+            res = api.fit(wl, protocol, engine, key=0, iters=FULL_ITERS,
+                          device="cuda")
+    counts = ops.launch_counts()
+    return res, counts, torch.cuda.max_memory_allocated() - held
+
+
+def protocol_stepper(torch, protocol: str, res):
+    """(step(key, state), state): one more training step of a finished
+    full-width fit, for profile_steps."""
+    import numpy as np
+    from repro_torch import api
+    from repro_torch.core import baselines, secure_agg, sigmoid_approx
+    wl = api.get_workload(FULL_WORKLOAD)
+    cuda = torch.device("cuda")
+    if protocol == "mpc_baseline":
+        return api.protocols.get(protocol).driver(wl, cuda).iteration, \
+            res.state
+    w = torch.from_numpy(np.asarray(res.weights, np.float32)).to(cuda)
+    if protocol == "secure_agg":
+        xs, ys, mask = secure_agg._padded_clients(*wl.client_data(),
+                                                  wl.objective, cuda)
+        return (lambda key, w_: secure_agg.secure_step(
+            key, xs, ys, mask, w_, res.state, wl.cfg.eta,
+            objective=wl.objective)), w
+    x, y, _, _ = wl.data()
+    x = baselines.to_device(x, torch.float32, cuda)
+    y = baselines.to_device(y, torch.float32, cuda)
+    ghat = torch.sigmoid
+    if protocol == "poly_float":
+        coeffs = sigmoid_approx.fit_sigmoid_poly(wl.cfg.r,
+                                                 wl.cfg.sigmoid_bound)
+        ghat = (lambda z: baselines.horner(coeffs, z))
+    return (lambda key, w_: baselines.gd(x, y, w_, wl.cfg.eta, 1, ghat)), w
+
+
+def phase_protocols(ck: Checker, np, fused_summary: dict) -> tuple:
+    """mpc_baseline, secure_agg, float and poly_float at full width
+    (FULL_WORKLOAD, FULL_ITERS): each fit's counts reset just before it and
+    read just after; setup s, ms/iter, peak memory, a profile of two more
+    steps, accuracy; the GEMMs of mpc_baseline and secure_agg by shape and
+    path (the baseline's Z = X W on the tiled kernel, as expected).
+    Returns ({protocol: summary}, {protocol: counts}, the float result)."""
+    torch = ck.torch
+    from repro_torch import api
+    from repro_torch.core import cost_model
+    wl = api.get_workload(FULL_WORKLOAD)
+    out, counts_by, float_res = {}, {}, None
+    for protocol, path in PROTOCOL_PATHS.items():
+        shapes = None
+        if protocol in ("mpc_baseline", "secure_agg"):
+            shapes = ShapeLog(protocol if protocol == "mpc_baseline"
+                              else None)
+        res, counts, peak = fit_protocol(ck, protocol, shape_log=shapes)
+        for name in path:
+            assert counts[name] > 0, \
+                f"{name} was not launched on the {protocol} path"
+        if not path:
+            assert not any(counts.values()), (protocol, counts)
+        w = np.asarray(res.weights)
+        assert w.shape == (wl.d,) and np.isfinite(w).all(), protocol
+        assert res.history.shape == (FULL_ITERS, wl.d), protocol
+        assert res.final_accuracy > 0.5, (protocol, res.final_accuracy)
+        summary = run_summary(res, counts, peak)
+        step, state = protocol_stepper(torch, protocol, res)
+        summary["profiled_steps"], summary["profile"] = profile_steps(
+            torch, step, state)
+        del step, state
+        if shapes is not None:
+            summary["gemm_shapes"] = gemm_table(ck, shapes, FULL_ITERS)
+            log_gemm_table(protocol, summary["gemm_shapes"])
+            if protocol == "mpc_baseline":      # Z = X W, as expected
+                tiled = [r for r in summary["gemm_shapes"]
+                         if r["path"] == "tiled"]
+                assert tiled and all(r["kernel"] == "modmatmul_batched"
+                                     and r["phase"] == "step"
+                                     for r in tiled), tiled
+        if protocol == "float":
+            float_res = res
+            # full width: float32 (jit) within 1e-3 of float64 (eager)
+            eager, _, _ = fit_protocol(ck, protocol, "eager")
+            gap = float(np.abs(eager.weights - w).max())
+            assert gap < 1e-3, gap
+            summary["eager_vs_jit_max_abs"] = gap
+        else:
+            res.state = None
+        prof = summary["profiled_steps"]
+        log(f"protocols: {protocol} {wl.name} setup "
+            f"{summary['setup_s']:.3f} s, {summary['ms_per_iter']:.3f} "
+            f"ms/iter, peak {summary['peak_gib']:.2f} GiB, device "
+            f"{prof['device_ms_per_step']:.4f} ms/step, idle "
+            f"{prof['idle_share']:.1%}, kernels/step "
+            f"{prof['device_kernels_per_step']:.1f}, accuracy "
+            f"{res.final_accuracy:.4f}, launches {counts}")
+        out[protocol] = summary
+        counts_by[protocol] = counts
+    cw = cost_model.Workload(m=wl.m, d=wl.d, n=wl.n_clients, k=wl.cfg.k,
+                             t=wl.cfg.t, iters=FULL_ITERS, r=wl.cfg.r)
+    modelled = {s: cost_model.speedup(cw, scheme=s) for s in ("bh08", "bgw")}
+    copml_dev = fused_summary["profiled_steps"]["device_ms_per_step"]
+    mpc_dev = out["mpc_baseline"]["profiled_steps"]["device_ms_per_step"]
+    out["simulated_compute"] = dict(
+        copml_device_ms_per_step=copml_dev,
+        mpc_baseline_device_ms_per_step=mpc_dev,
+        ratio=mpc_dev / copml_dev, modelled_speedup=modelled)
+    log(f"protocols: single-card simulated compute, device ms per step: "
+        f"copml {copml_dev:.4f}, mpc_baseline {mpc_dev:.4f} "
+        f"({mpc_dev / copml_dev:.2f}x); cost_model's MODELLED WAN speedup "
+        f"at {FULL_ITERS} iterations: bh08 {modelled['bh08']:.2f}x, bgw "
+        f"{modelled['bgw']:.2f}x")
+    return out, counts_by, float_res
+
+
+def phase_serve(ck: Checker, np, copml_res, float_res) -> tuple:
+    """api.serve on the full-width copml result (re-shared, never opened):
+    SERVE_QUERIES eval queries at each of SERVE_BATCHES, every window's
+    score_field equal to reference_scores of the opened model (computed on
+    the card and on the CPU) bit for bit; queries/s, encode s, and the
+    device time of one window.  The float result (fallback encode) at the
+    largest batch.  Returns (summary, launch counts of the serve runs)."""
+    torch = ck.torch
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    from repro_torch.serve import coded
+    wl = api.get_workload(FULL_WORKLOAD)
+    q = np.asarray(wl.eval_set()[0][:SERVE_QUERIES], np.float32)
+    out = {}
+    counts = collections.Counter()
+    for label, res, batches in (("copml", copml_res, SERVE_BATCHES),
+                                ("float", float_res, SERVE_BATCHES[-1:])):
+        want = coded.reference_scores(res.weights, q, wl.cfg, device="cpu")
+        on_card = coded.reference_scores(res.weights, q, wl.cfg,
+                                         device="cuda")
+        ck.compare("modmatmul", on_card, want,
+                   f"{label} reference_scores on the card")
+        want = want.numpy()
+        for b in batches:
+            srv = api.serve(wl, res, "jit", batch_size=b, device="cuda")
+            assert srv.model.from_shares == (label == "copml")
+            got = np.concatenate([srv.score_field(q[i:i + b])
+                                  for i in range(0, len(q), b)])
+            np.testing.assert_array_equal(got, want, err_msg=f"{label} {b}")
+            ops.reset_launches()
+            preds, stats = srv.serve(q)
+            run = ops.launch_counts()
+            for name in SERVE_PATH:
+                assert run[name] > 0, f"{name} not launched serving"
+            counts.update(run)
+            np.testing.assert_array_equal(      # the sign of each logit
+                preds, (np.where(want > ck.P // 2, want - ck.P, want)[:, 0]
+                        > 0).astype(np.int32))
+            xb = torch.from_numpy(q[:b]).cuda()
+            window = device_ms(torch, lambda: srv._score(xb), 20)
+            out[f"{label} batch {b}"] = dict(
+                queries_per_s=stats["queries_per_s"], serve_s=stats["serve_s"],
+                encode_s=stats["encode_s"], batches=stats["batches"],
+                device_ms_per_window=window, launches=run)
+            log(f"serve: {label} {wl.name} batch {b}: "
+                f"{stats['queries_per_s']:.0f} queries/s over "
+                f"{stats['queries']} queries, encode "
+                f"{stats['encode_s']:.4f} s, device "
+                f"{'not measured' if window is None else f'{window:.4f} ms'}"
+                f" per window, launches {run}")
+            del srv
+    log("serve: every window's field logits equal reference_scores of the "
+        "opened model, bit for bit, on the card")
+    return out, dict(counts)
+
+
+
 def set_schedule(mode: str) -> None:
     """REPRO_FUSED_STEP for the next fit ("0" siloed, "1" fused)."""
     os.environ["REPRO_FUSED_STEP"] = mode
@@ -987,7 +1356,7 @@ def phase_siloed(ck: Checker, np, fused) -> tuple:
     set_schedule("1")
     assert proto.fused_mode == "0"
     summary["profiled_steps"], summary["profile"] = profile_steps(
-        ck.torch, proto, res.state)
+        ck.torch, proto.iteration, res.state)
     del calls, x, w, co
     res.state = None
     # host time per step varies from fit to fit: the two schedules in turns
@@ -1185,18 +1554,25 @@ def main() -> int:
     ck = Checker(torch, np, P)
     rows = phase_kernels(ck, args.quick)
     rows.update(phase_kernels_siloed(ck, args.quick))
+    phase_kernels_protocols(ck, args.quick)
     phase_golden(np)
     phase_golden_siloed(np)
+    phase_golden_protocols(np)
     # launches: each kernel's count from the full-width path that runs it
     # (coded_gradient and poly_eval are on no path of the protocol)
     counts = {k: 0 for k in TPU_KERNEL}
     path = {k: None for k in TPU_KERNEL}
+    by_path = {k: {} for k in TPU_KERNEL}
     if not args.quick:
         fused_counts, summary, fused = phase_full(ck, np)
-        fused.state = None                 # frees its device memory
         report["full"] = summary
         siloed_counts, report["siloed"] = phase_siloed(ck, np, fused)
         report["faulty"] = phase_faulty(ck, np, fused)
+        report["protocols"], report["protocol_launches"], float_res = \
+            phase_protocols(ck, np, summary)
+        report["serve"], report["serve_launches"] = phase_serve(
+            ck, np, fused, float_res)
+        fused.state = None                 # frees its device memory
         for name in FUSED_PATH:
             counts[name] = fused_counts[name]
             path[name] = "fused cifar10_case2"
@@ -1206,6 +1582,12 @@ def main() -> int:
         counts["coded_gradient_matrix"] = \
             siloed_counts["coded_gradient_matrix"]
         path["coded_gradient_matrix"] = "siloed mnist10_like"
+        for name in ("modmatmul", "modmatmul_batched"):
+            by_path[name] = {
+                "fused cifar10_case2": fused_counts[name],
+                **{f"{p} cifar10_case2": c[name]
+                   for p, c in report["protocol_launches"].items()},
+                "serve cifar10_case2": report["serve_launches"].get(name, 0)}
     report["shapes"] = ck.rows
 
     kernels = []
@@ -1214,7 +1596,7 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE[name],
             replaces=TPU_KERNEL[name], launches=counts[name],
-            path=path[name],
+            path=path[name], launches_by_path=by_path[name],
             max_abs_err=ck.max_err[name], equal=ck.max_err[name] == 0,
             checks=ck.checks[name], shape=r.get("shape"), ms=r.get("ms"),
             device_ms=r.get("device_ms"),

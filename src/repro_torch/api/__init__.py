@@ -5,25 +5,34 @@
     res = api.fit("smoke", "copml", "jit", device="cpu")      # plain torch
     plan = api.FaultPlan.from_schedule(13, 4, stragglers={1: (0,)})
     res = api.fit("smoke_straggler", iters=4, faults=plan)    # churn
+    res = api.fit("smoke", "mpc_baseline", "jit", iters=5)    # or "float",
+    #                                 "poly_float", "secure_agg"
+    srv = api.serve("smoke", res, "jit")     # score from re-shared shares
+    preds, stats = srv.serve(queries)
 
-Same workload names and TrainResult schema as the JAX package's api.
+Same workload and protocol names, and the same TrainResult schema, as the
+JAX package's api.
 """
 
 from ..core.objectives import (OBJECTIVES, SecureObjective,
                                multiclass_logistic)
 from ..core.objectives import get as get_objective
 from .faults import FaultPlan, FaultPlanViolation
-from .protocols import ENGINES, fault_threshold, fit
+from .protocols import ENGINES, PROTOCOLS, Protocol, fault_threshold, fit
+from .protocols import names as protocol_names
+from .protocols import register as register_protocol
 from .result import TrainResult, accuracy_curve, accuracy_of
+from .serving import SERVE_ENGINES, serve
 from .workloads import WORKLOADS, Workload
 from .workloads import get as get_workload
 from .workloads import names as workload_names
 from .workloads import register as register_workload
 
 __all__ = [
-    "ENGINES", "OBJECTIVES", "FaultPlan", "FaultPlanViolation",
-    "SecureObjective", "TrainResult", "WORKLOADS", "Workload",
-    "accuracy_curve", "accuracy_of", "fault_threshold", "fit",
-    "get_objective", "get_workload", "multiclass_logistic",
-    "register_workload", "workload_names",
+    "ENGINES", "OBJECTIVES", "PROTOCOLS", "SERVE_ENGINES", "FaultPlan",
+    "FaultPlanViolation", "Protocol", "SecureObjective", "TrainResult",
+    "WORKLOADS", "Workload", "accuracy_curve", "accuracy_of",
+    "fault_threshold", "fit", "get_objective", "get_workload",
+    "multiclass_logistic", "protocol_names", "register_protocol",
+    "register_workload", "serve", "workload_names",
 ]

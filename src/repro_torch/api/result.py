@@ -1,5 +1,5 @@
 """TrainResult: the return value of api.fit, with the JAX package's schema
-(fields this port does not produce yet stay None)."""
+(measured_comm, the proc engine's record, is not produced by this port)."""
 
 from __future__ import annotations
 
@@ -51,15 +51,17 @@ class TrainResult:
     wall_time_s    end-to-end wall time (setup + train + open), ending in
                    a device synchronise
     device         the device the run used ("cuda:0", "cpu")
+    cost           modeled per-client comm/comp/enc seconds on the paper's
+                   WAN parameters (core/cost_model), or None for protocols
+                   the paper does not price (float, poly_float, secure_agg)
     timings        setup_s and iters_s: wall seconds of the setup and of the
                    iteration loop (each ending in a device synchronise)
-    state          the final CopmlState (torch tensors on `device`)
+    state          the protocol's final state: CopmlState / MpcState
+                   (torch tensors on `device`), the SecureAggConfig of a
+                   secure_agg run, None for the float protocols
     availability   the run's FaultPlan availability, bool (iters, N) (True =
                    the client contributed honestly and on time that step),
                    or None for a fault-free run
-
-    The JAX package's cost and measured_comm fields arrive with the slices
-    that port cost_model and the proc engine.
     """
     workload: str
     protocol: str
@@ -71,6 +73,7 @@ class TrainResult:
     accuracy: np.ndarray | None = None
     final_accuracy: float | None = None
     per_class_accuracy: np.ndarray | None = None
+    cost: dict | None = None
     device: str = "cpu"
     timings: dict | None = None
     state: object = None
@@ -91,6 +94,9 @@ class TrainResult:
             worst = np.nanmin(self.per_class_accuracy)
             parts.append(f"(worst class {worst:.3f} "
                          f"of {len(self.per_class_accuracy)})")
+        if self.cost is not None:
+            parts.append(f"modeled total {self.cost['total_s']:.0f}s "
+                         f"(comm {self.cost['comm_s']:.0f}s)")
         if self.availability is not None:
             n = self.availability.shape[1]
             parts.append(f"churn: min {int(self.availability.sum(1).min())}"

@@ -170,6 +170,11 @@ def random_field(key, shape, device="cpu"):
     return jrandom.randint(key, shape, 0, P, device=device)
 
 
+def random_field_keys(keys, shape, device="cpu"):
+    """random_field for each of K keys in one draw: (K,) + shape."""
+    return jrandom.randint_keys(keys, shape, 0, P, device=device)
+
+
 # ---------------------------------------------------------------------------
 # numpy uint64 oracles (host-side ground truth for tests)
 # ---------------------------------------------------------------------------

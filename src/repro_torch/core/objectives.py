@@ -40,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from . import field, sigmoid_approx
 from .labels import Public
@@ -115,6 +116,10 @@ class SecureObjective:
         """The exact activation ghat approximates (numpy, float64)."""
         raise NotImplementedError
 
+    def act_torch(self, z):
+        """The same activation on a torch tensor (the float trainers and
+        secure_agg's client gradients, on the run's device)."""
+        raise NotImplementedError
 
     def score(self, w, x, y) -> float:
         """Scalar quality of model `w` on (x, y): classification accuracy
@@ -138,6 +143,8 @@ class BinaryLogistic(SecureObjective):
     def act_np(self, z):
         return 1.0 / (1.0 + np.exp(-z))
 
+    def act_torch(self, z):
+        return torch.sigmoid(z)
 
     def score(self, w, x, y) -> float:
         z = np.asarray(x, np.float64) @ np.asarray(w, np.float64)
@@ -168,6 +175,8 @@ class LinearRegression(SecureObjective):
     def act_np(self, z):
         return z
 
+    def act_torch(self, z):
+        return z
 
     def score(self, w, x, y) -> float:
         """R^2 on (x, y) (1 = perfect fit; can go negative early)."""
@@ -220,6 +229,8 @@ class MulticlassLogistic(SecureObjective):
     def act_np(self, z):
         return 1.0 / (1.0 + np.exp(-z))
 
+    def act_torch(self, z):
+        return torch.sigmoid(z)
 
     def predict(self, w, x) -> np.ndarray:
         scores = np.asarray(x, np.float64) @ np.asarray(w, np.float64)

@@ -126,19 +126,47 @@ def randint(key, shape, minval: int, maxval: int, *,
     cannot change the result, so it is skipped.
     """
     shape = tuple(int(s) for s in shape)
-    minval, maxval = int(minval), int(maxval)
+    keys = split(key)
+    out = _draw(_words(keys[0]), _words(keys[1]), math.prod(shape),
+                int(minval), int(maxval), device)
+    return out.reshape(shape)
+
+
+def randint_keys(keys, shape, minval: int, maxval: int, *,
+                 device="cpu") -> torch.Tensor:
+    """torch.stack([randint(k, shape, minval, maxval) for k in keys]) as
+    one draw: the K keys' words ride as (K, 1) tensors through the same
+    hash, so a draw for every client of a round is one pass of elementwise
+    ops instead of K.  keys: (K, 2).  Returns (K,) + shape."""
+    shape = tuple(int(s) for s in shape)
+    halves = [split(k) for k in keys]
+
+    def col(i: int, w: int):
+        return torch.tensor([[int(h[i][w])] for h in halves],
+                            dtype=torch.int64, device=device)
+
+    out = _draw((col(0, 0), col(0, 1)), (col(1, 0), col(1, 1)),
+                math.prod(shape), int(minval), int(maxval), device,
+                rows=len(halves))
+    return out.reshape((len(halves),) + shape)
+
+
+def _draw(hi_key, lo_key, n: int, minval: int, maxval: int, device,
+          rows: int | None = None) -> torch.Tensor:
+    """randint's n words for one key (words as Python ints; returns (n,))
+    or for `rows` keys at once (words as (rows, 1) tensors; returns
+    (rows, n))."""
     if not -(1 << 31) <= minval <= maxval <= (1 << 31) - 1:
         raise ValueError(f"int32 randint bounds, got [{minval}, {maxval})")
     span = max(maxval - minval, 1)
     mult = (1 << 16) % span
     mult = ((mult * mult) & M32) % span
-    keys = split(key)
-    hi_key, lo_key = _words(keys[0]), _words(keys[1])
-    n = math.prod(shape)
-    out = torch.empty(n, dtype=torch.int32, device=device)
+    lead = () if rows is None else (rows,)
+    out = torch.empty(lead + (n,), dtype=torch.int32, device=device)
     h = (n + 1) // 2
-    for qs in range(0, h, _CHUNK):
-        qe = min(h, qs + _CHUNK)
+    chunk = max(1, _CHUNK // (rows or 1))
+    for qs in range(0, h, chunk):
+        qe = min(h, qs + chunk)
         c0 = torch.arange(qs, qe, dtype=torch.int64, device=device)
         c1 = c0 + h
         if n % 2 and qe == h:
@@ -150,9 +178,9 @@ def randint(key, shape, minval: int, maxval: int, *,
             offs = [((((hw % span) * mult) & M32) + o) & M32
                     for hw, o in zip(hi, offs)]
             offs = [o % span for o in offs]
-        out[qs:qe] = (offs[0] + minval).to(torch.int32)
+        out[..., qs:qe] = (offs[0] + minval).to(torch.int32)
         tail = min(qe, n - h) - qs        # second-half words inside [0, n)
         if tail > 0:
-            out[h + qs:h + qs + tail] = (offs[1][:tail] + minval).to(
-                torch.int32)
-    return out.reshape(shape)
+            out[..., h + qs:h + qs + tail] = (offs[1][..., :tail]
+                                              + minval).to(torch.int32)
+    return out

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from . import field
-from .labels import Opened, Share
+from .labels import Opened, Public, Share
 
 
 def default_eval_points(n: int, offset: int = 1) -> tuple:
@@ -48,6 +48,12 @@ def _on_device(kind: str, points: tuple, t: int, device: str):
     arr = _power_matrix(points, t) if kind == "power" else \
         _recon_matrix(points)
     return torch.from_numpy(arr).to(device)
+
+
+def power_matrix(points: Sequence[int], t: int, device) -> Public:
+    """The public (N, T) matrix lambda_i^{j+1} mod p on `device`: shares
+    are secret + power_matrix @ coefficients."""
+    return _on_device("power", tuple(points), t, str(device))
 
 
 def share(key, secret, t: int, n: int,

@@ -129,9 +129,9 @@ def test_fit_options():
     assert res.history is None and res.accuracy is None
     np.testing.assert_array_equal(np.asarray(res.weights, np.float64),
                                   np.asarray(GOLDEN_W))
-    with pytest.raises(ValueError, match="not ported"):
-        api.fit("smoke", "float", device="cpu")
-    with pytest.raises(ValueError, match="engine"):
+    with pytest.raises(KeyError, match="unknown protocol"):
+        api.fit("smoke", "quantum", device="cpu")
+    with pytest.raises(ValueError, match="engine.*not ported"):
         api.fit("smoke", "copml", "sharded", device="cpu")
 
 

@@ -61,6 +61,25 @@ def test_randint_chunked_and_offset(monkeypatch):
     assert np.array_equal(jrandom.randint(tk, (8, 5), 5, 300).numpy(), want_o)
 
 
+@pytest.mark.parametrize("shape,span,chunk", [
+    ((7, 5), jfield.P, None), ((3, 4), 1000, None), ((1,), 1 << 24, None),
+    ((7, 5), jfield.P, 6)])
+def test_randint_keys_equals_one_draw_per_key(monkeypatch, shape, span,
+                                              chunk):
+    """randint_keys (K keys hashed in one pass) equals the JAX package's
+    one draw per key: odd sizes, a nonzero uint32 multiplier (span 1000),
+    and chunk boundaries (6 counter pairs a chunk over 3 keys)."""
+    if chunk is not None:
+        monkeypatch.setattr(jrandom, "_CHUNK", chunk)
+    with jax.threefry_partitionable(False):
+        keys = jax.random.split(jax.random.PRNGKey(5), 3)
+        want = np.stack([np.asarray(jax.random.randint(
+            k, shape, 0, span, dtype=np.int32)) for k in keys])
+    got = jrandom.randint_keys(torch.from_numpy(_np(keys)), shape, 0, span)
+    assert got.dtype == torch.int32 and got.shape == (3,) + shape
+    assert np.array_equal(got.numpy(), want)
+
+
 def test_threefry_scalar_and_tensor_agree():
     x0 = torch.tensor([0, 1, 2 ** 32 - 1], dtype=torch.int64)
     x1 = torch.tensor([5, 0, 2 ** 31], dtype=torch.int64)
