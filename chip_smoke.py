@@ -22,10 +22,19 @@ Phases (a failed phase fails the run; no failure is caught):
               and 10, one adversary's offset, and x = w = p - 1 at
               d = 40000 (pass 1's lane sums past 2^58); poly_eval on both
               kernels (short; grid-stride past one wave), at degrees 0 to 63, z 4 bytes off and
-              z = every coefficient = p - 1; the tiled GEMM at the other
-              paths' shapes: the MPC baseline's Z = X W (16, 3006, 3073) @
-              (16, 3073, C), C = 1 and 10, and serving's (B, 3073) @ (3073,
-              50), B = 1, 32, 128 (--quick: cuts of both)
+              z = every coefficient = p - 1; the row-dot GEMM (A K-contiguous,
+              N <= 16) at M in {1, 31, 3006}, K in {65, 3073, 4097, 9019,
+              60000}, N in {1, 10, 16}, K past one staged chunk of B, batch
+              stride 0, A 4 bytes off a 16-byte line and x = y = p - 1; the
+              split-K GEMM (M <= 128, K > 64) at M in {1, 31, 128}, K in
+              {65, 3073, 4097, 9019}, N in {1, 50, 130, 500}, one split
+              (no combine), splits of several 64-row passes, batch stride
+              0, A 4 bytes off and x = y = p - 1; the tiled GEMM on a
+              K-contiguous A and a strided B; then the two new paths at the
+              other protocols' full shapes: the MPC baseline's Z = X W
+              (16, 3006, 3073) @ (16, 3073, C), C = 1 and 10, on the row-dot
+              kernel, and serving's (B, 3073) @ (3073, 50), B = 1, 32, 128,
+              on the split-K kernel (--quick: cuts of both)
   3. golden   api.fit on cuda reproduces the smoke goldens (weights, share
               and history sha256) and the pinned mnist10_like /
               linreg_smoke / cifar10_like / smoke_straggler shas of the JAX
@@ -59,8 +68,9 @@ Phases (a failed phase fails the run; no failure is caught):
               counts reset just before and read just after: setup s,
               ms/iter, peak memory, a profile of two more steps (device ms
               per step, idle share, kernels per step), accuracy; the GEMMs
-              of mpc_baseline (whose Z = X W takes the tiled kernel) and
-              secure_agg by shape and path; float's eager (float64) run
+              of mpc_baseline (its Z = X W on the row-dot kernel) and
+              secure_agg by shape and path, none on the tiled kernel;
+              float's eager (float64) run
               within 1e-3 of its jit (float32) one; copml's and
               mpc_baseline's device ms per step beside cost_model's
               MODELLED speedup (the single card simulates compute only)
@@ -68,10 +78,15 @@ Phases (a failed phase fails the run; no failure is caught):
               opened): 1024 eval queries at batch 1, 32 and 128, every
               window's field logits equal to reference_scores of the
               opened model bit for bit; queries/s, encode s, device ms per
-              window; the float result (fallback encode) at batch 128
+              window; the windows' GEMMs by shape and path (scores on the
+              split-K kernel, opens on the thin one, none on the tiled
+              kernel); the float result (fallback encode) at batch 128
 
-Output: one {"kernels": [...]} JSON line, the card's name and power limit
-(nvidia-smi), then {"ok": true, "device": {...}} as the last line.
+Output: one {"kernels": [...]} JSON line (the seven TPU kernels' ports,
+then the row-dot and split-K paths of modmatmul as entries of their own,
+each with its launches on the full-width path that runs it), the card's
+name and power limit (nvidia-smi), then {"ok": true, "device": {...}} as
+the last line.
 Details (per-shape timings, poly_eval's device time at L = 45,100 and 2^26,
 the ptxas report, a profile of two steps) go to chip_smoke.json in OUT_DIR.
 
@@ -171,6 +186,8 @@ TPU_KERNEL = {
     "coded_gradient_matrix": "src/repro/kernels/coded_gradient.py:183",
     "coded_gradient": "src/repro/kernels/coded_gradient.py:120",
     "poly_eval": "src/repro/kernels/field_poly.py:30",
+    "modmatmul_batched.rowdot": "src/repro/kernels/modmatmul.py:106",
+    "modmatmul.splitk": "src/repro/kernels/modmatmul.py:70",
 }
 SOURCE = {
     "modmatmul": "src/repro_torch/kernels/csrc/modmatmul.cu",
@@ -180,11 +197,26 @@ SOURCE = {
     "coded_gradient_matrix": "src/repro_torch/kernels/csrc/coded_gradient.cu",
     "coded_gradient": "src/repro_torch/kernels/csrc/coded_gradient.cu",
     "poly_eval": "src/repro_torch/kernels/csrc/field_poly.cu",
+    "modmatmul_batched.rowdot": "src/repro_torch/kernels/csrc/modmatmul.cu",
+    "modmatmul.splitk": "src/repro_torch/kernels/csrc/modmatmul.cu",
 }
+# the modmatmul paths with entries of their own in the kernels line: the
+# GEMM path, and the full-width run whose launches they report
+PATH_ENTRIES = {"modmatmul_batched.rowdot": ("rowdot", "mpc_baseline"),
+                "modmatmul.splitk": ("splitk", "serve")}
 
 
 def log(*args):
     print(*args, flush=True)
+
+
+def run_counts() -> dict:
+    """The launch counts since the last ops.reset_launches(): each kernel's,
+    and the field GEMM's by path under "gemm:<path>"."""
+    from repro_torch.kernels import ops
+    counts = ops.launch_counts()
+    counts.update({f"gemm:{p}": c for p, c in ops.gemm_path_counts().items()})
+    return counts
 
 
 def sha(arr, dtype) -> str:
@@ -393,6 +425,85 @@ def colsum_checks(ck: Checker, paths: dict) -> None:
                    f"{' B class-major' if b_strided else ''}")
 
 
+# (batch, M, K, N, A's offset in words, x = y = p - 1, A's batch stride 0):
+# the row-dot GEMM's ragged cases (A K-contiguous, N <= 16, past the thin
+# path); K = 4097 / 9019 at N = 16 and 10, and K = 60000 at N = 1, pass
+# one staged chunk of B (plan.rowdot_shape), so later chunks add into the
+# output
+ROWDOT_CASES = [
+    (3, 1, 65, 1, 0, False, False),
+    (2, 31, 3073, 10, 1, False, False),         # A 4 bytes off a 16B line
+    (1, 3006, 4097, 16, 0, False, False),
+    (2, 31, 9019, 1, 0, True, False),           # worst sums
+    (4, 31, 3073, 10, 0, False, True),          # batch stride 0
+    (1, 31, 9019, 10, 3, True, False),          # chunks of B, worst sums
+    (2, 3, 60000, 1, 0, True, False),           # two chunks at C = 1
+    (3, 100, 300, 2, 0, False, False),
+    (2, 65, 40, 4, 0, False, False)]            # K <= 64, M past thin
+# (batch, M, K, N, A's offset, x = y = p - 1, A's batch stride 0, forced):
+# the split-K GEMM's ragged cases (M <= 128, K > 64); `forced` calls the
+# kernel directly with plan.splitk_launch where gemm_path would take
+# another path (N = 1 with a K-contiguous A is row-dot's)
+SPLITK_CASES = [
+    (1, 1, 65, 50, 0, False, False, False),
+    (1, 31, 3073, 130, 1, False, False, False),  # A 4 bytes off
+    (2, 128, 4097, 500, 0, False, True, False),  # batch stride 0
+    (1, 1, 9019, 50, 0, True, False, False),     # worst sums
+    (1, 128, 3073, 50, 0, True, False, False),
+    (1, 31, 9019, 1, 0, False, False, True),     # N = 1
+    (300, 2, 65, 50, 0, False, False, False),    # one split: no combine
+    (2, 5, 9019, 500, 0, True, False, False),    # splits of 3 passes
+    (1, 128, 65, 1, 0, True, False, True)]
+
+
+def gemm_case(ck: Checker, b, m, k, n, off, worst, bcast):
+    """A (b, m, k) K-contiguous, `off` words into its buffer (one (m, k)
+    expanded over the batch with `bcast`), and B (b, k, n); x = y = p - 1
+    with `worst`."""
+    rows = 1 if bcast else b
+    a = ck.field(off + rows * m * k)[off:].view(rows, m, k)
+    y = ck.field(b, k, n)
+    if worst:
+        a.fill_(ck.P - 1)
+        y.fill_(ck.P - 1)
+    return (a.expand(b, m, k) if bcast else a), y
+
+
+def new_path_checks(ck: Checker, paths: dict) -> None:
+    """The row-dot and split-K GEMMs at ROWDOT_CASES and SPLITK_CASES
+    against the plain version, each counted in `paths`."""
+    torch = ck.torch
+    from repro_torch.kernels import modmatmul as mm
+    from repro_torch.kernels import plan, ref
+    for (b, m, k, n, off, worst, bcast) in ROWDOT_CASES:
+        a, y = gemm_case(ck, b, m, k, n, off, worst, bcast)
+        assert mm.path_of(a, y) == "rowdot", (b, m, k, n)
+        paths["rowdot"] += 1
+        ck.compare("modmatmul_batched.rowdot", mm.modmatmul_batched(a, y),
+                   ref.modmatmul_batched(a.cpu(), y.cpu()),
+                   f"rowdot ({b},{m},{k})@({b},{k},{n}) offset {off}"
+                   f" kch {plan.rowdot_shape(n, k)['kch']}"
+                   f"{' p - 1' if worst else ''}"
+                   f"{' batch stride 0' if bcast else ''}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for (b, m, k, n, off, worst, bcast, forced) in SPLITK_CASES:
+        a, y = gemm_case(ck, b, m, k, n, off, worst, bcast)
+        launch = plan.splitk_launch(m, n, k, b, sms)
+        if forced:
+            got = mm.splitk(a, y, torch.empty((b, m, n), dtype=torch.int32,
+                                              device="cuda"), launch)
+        else:
+            assert mm.path_of(a, y) == "splitk", (b, m, k, n)
+            got = mm.modmatmul_batched(a, y)
+        paths["splitk"] += 1
+        ck.compare("modmatmul.splitk", got,
+                   ref.modmatmul_batched(a.cpu(), y.cpu()),
+                   f"splitk ({b},{m},{k})@({b},{k},{n}) offset {off} "
+                   f"splits {launch['splits']} x kc {launch['kc']}"
+                   f"{' p - 1' if worst else ''}"
+                   f"{' batch stride 0' if bcast else ''}")
+
+
 def phase_kernels(ck: Checker, quick: bool) -> dict:
     """Ragged and main-path checks; returns the JSON rows per kernel."""
     torch = ck.torch
@@ -411,10 +522,22 @@ def phase_kernels(ck: Checker, quick: bool) -> dict:
     at, bt = ck.field(40, 30), ck.field(70, 40)
     ck.compare("modmatmul", mm.modmatmul(at.t(), bt.t()),
                ref.modmatmul(at.t().cpu(), bt.t().cpu()), "transposed views")
+    # the tiled kernel's three tile shapes past its 2048-term reduce, with a
+    # K-contiguous A (the padded As rows) and a K-contiguous B (padded Bs)
+    for (m, k, n, a_step, b_t) in [(200, 2500, 9, 2, False),
+                                   (8, 2100, 300, 1, True),
+                                   (150, 2100, 40, 1, True)]:
+        a = ck.field(m, k * a_step)[:, ::a_step]
+        b = ck.field(n, k).t() if b_t else ck.field(k, n)
+        assert mm.path_of(a[None], b[None]) == "tiled", (m, k, n)
+        ck.compare("modmatmul", mm.modmatmul(a, b),
+                   ref.modmatmul(a.cpu(), b.cpu()),
+                   f"tiled ({m},{k})@({k},{n}) A K-stride {a_step}"
+                   f"{' B transposed' if b_t else ''}")
     # thin path: every M x K in {1, 8, 17, 50, 64, 65}^2 at an odd N (rows
     # start 4, 8 or 12 bytes off a 16-byte line), past the grid's stride,
     # and a strided B (M, K <= 64) that must keep the tiled path
-    paths = {"thin": 0, "tiled": 0, "colsum": 0}
+    paths = dict.fromkeys(("thin", "colsum", "rowdot", "splitk", "tiled"), 0)
     sizes = (1, 8, 17, 50, 64, 65)
     for m in sizes:
         for k in sizes:
@@ -441,6 +564,7 @@ def phase_kernels(ck: Checker, quick: bool) -> dict:
                ref.modmatmul_batched(ab.cpu(), bb.cpu()),
                "thin batch stride 0 (6,50,17)@(6,17,1001)")
     colsum_checks(ck, paths)
+    new_path_checks(ck, paths)
     for (bsz, m, k, n) in [(3, 17, 40, 19), (13, 24, 13, 10), (2, 1, 9, 7)]:
         a, b = ck.field(bsz, m, k), ck.field(bsz, k, n)
         ck.compare("modmatmul_batched", mm.modmatmul_batched(a, b),
@@ -715,7 +839,7 @@ def gemm_table(ck: Checker, shape_log: ShapeLog, iters: int) -> list:
             bsz, (m_, k_), n_ = 1, ash, bsh[1]
         else:
             (bsz, m_, k_), n_ = ash, bsh[2]
-        path = gemm_path(m_, k_, bst[-1], n_, ast[-2])
+        path = gemm_path(m_, k_, bst[-1], n_, ast[-2], ast[-1])
         if key[1:] not in GEMM_TIMES:
             a, abase = strided_field(ck, ash, ast)
             b, bbase = strided_field(ck, bsh, bst)
@@ -745,13 +869,21 @@ def gemm_table(ck: Checker, shape_log: ShapeLog, iters: int) -> list:
     return rows
 
 
-def no_tiled_gemm(rows: list) -> None:
-    """No GEMM of a full-width fit takes the tiled kernel: X^T y (K = m =
-    9019, past the thin kernel's 64) takes the column-sum kernel, every
-    other the thin one."""
+def no_tiled_gemm(rows: list, run: str = "copml") -> None:
+    """No GEMM of a full-width run takes the tiled kernel.  copml: X^T y
+    (K = m = 9019, past the thin kernel's 64) takes the column-sum kernel,
+    every other the thin one; mpc_baseline: Z = X W (its (N_g, m/3, d)
+    shares K-contiguous, N = C) the row-dot kernel, X^T ghat the column-sum
+    kernel, the rest the thin one; serving: the scores the split-K kernel,
+    the opens the thin one; secure_agg: the thin one."""
+    allowed = {"copml": ("thin", "colsum"),
+               "mpc_baseline": ("thin", "colsum", "rowdot"),
+               "serve": ("thin", "splitk"), "secure_agg": ("thin",)}[run]
     for r in rows:
-        want = "colsum" if r["k"] > 64 else "thin"
-        assert r["path"] == want, r
+        assert r["path"] in allowed, (run, r)
+        if run == "copml":
+            want = "colsum" if r["k"] > 64 else "thin"
+            assert r["path"] == want, r
 
 
 def log_gemm_table(what: str, rows: list) -> None:
@@ -807,7 +939,7 @@ def phase_full(ck: Checker, np) -> tuple:
         t0 = time.perf_counter()
         res = api.fit(wl, "copml", "jit", iters=iters, device="cuda")
         wall = time.perf_counter() - t0
-    counts = ops.launch_counts()
+    counts = run_counts()
     ops.fused_step = launch_fused
     peak = torch.cuda.max_memory_allocated()
 
@@ -972,56 +1104,64 @@ def phase_kernels_siloed(ck: Checker, quick: bool) -> dict:
     return rows
 
 
-def phase_kernels_protocols(ck: Checker, quick: bool) -> None:
-    """The tiled GEMM at the shapes the other paths give it, against the
-    plain version (CPU copies, exact), timed by device time with its bound:
-    the MPC baseline's Z = X W, a K-contiguous (N_g, m/3, d) share tensor
-    times (N_g, d, C) at cifar10_case2 (16, 3006, 3073) with C = 1 and 10,
-    and serving's packed (B, d) @ (d, N) at B in SERVE_BATCHES.  --quick
-    checks cuts of both shapes only."""
+def phase_kernels_protocols(ck: Checker, quick: bool) -> dict:
+    """The row-dot and split-K GEMMs at the shapes the other paths give
+    them, against the plain version (CPU copies, exact), timed by device
+    time with their bound: the MPC baseline's Z = X W, a K-contiguous (N_g,
+    m/3, d) share tensor times (N_g, d, C) at cifar10_case2 (16, 3006,
+    3073) with C = 1 and 10, on the row-dot kernel, and serving's packed
+    (B, d) @ (d, N) (the row-major w_cols) at B in SERVE_BATCHES, on the
+    split-K kernel.  --quick checks cuts of both shapes only.  Returns the
+    kernels line's rows of the two paths (Z at C = 1, serving at batch 1)."""
     torch = ck.torch
     from repro_torch.kernels import modmatmul as mm
     from repro_torch.kernels import ref
     ng, mg, d, n_cl = (3, 301, 3073, 50) if quick else (16, 3006, 3073, 50)
+    rows = {}
     for c in (1, 10):
         x, w = ck.field(ng, mg, d), ck.field(ng, d, c)
-        assert mm.path_of(x, w) == "tiled", (x.shape, w.shape)
-        ck.compare("modmatmul_batched", mm.modmatmul_batched(x, w),
+        assert mm.path_of(x, w) == "rowdot", (x.shape, w.shape)
+        ck.compare("modmatmul_batched.rowdot", mm.modmatmul_batched(x, w),
                    ref.modmatmul_batched(x.cpu(), w.cpu()),
-                   f"tiled MPC baseline Z ({ng},{mg},{d})@({ng},{d},{c})")
+                   f"rowdot MPC baseline Z ({ng},{mg},{d})@({ng},{d},{c})")
         if not quick:
             fn = (lambda a, b: lambda: mm.modmatmul_batched(a, b))(x, w)
             bb, by = bound(4.0 * (x.numel() + w.numel() + ng * mg * c),
                            2.0 * x.numel() * c)
+            rec = dict(shape=f"({ng},{mg},{d})@({ng},{d},{c})",
+                       ms=ck.time_ms(fn, 10),
+                       device_ms=device_ms(torch, fn, 10),
+                       plain_ms=ck.time_ms(
+                           lambda: ref.modmatmul_batched(x, w), 1),
+                       bound_ms=bb, bound_by=by, path="rowdot")
             ck.rows.append(dict(
-                kernel="modmatmul_batched", path="tiled",
+                kernel="modmatmul_batched",
                 what=f"MPC baseline Z = X W C={c} (per group, per step)",
-                shape=f"({ng},{mg},{d})@({ng},{d},{c})",
-                ms=ck.time_ms(fn, 10), device_ms=device_ms(torch, fn, 10),
-                plain_ms=ck.time_ms(
-                    lambda: ref.modmatmul_batched(x, w), 1),
-                bound_ms=bb, bound_by=by))
+                **rec))
+            rows.setdefault("modmatmul_batched.rowdot", rec)
         del x, w
     torch.cuda.empty_cache()
     for b in SERVE_BATCHES:
         a, w = ck.field(b, d), ck.field(d, n_cl)
-        assert mm.path_of(a[None], w[None]) == "tiled"
-        ck.compare("modmatmul", mm.modmatmul(a, w),
+        assert mm.path_of(a[None], w[None]) == "splitk"
+        ck.compare("modmatmul.splitk", mm.modmatmul(a, w),
                    ref.modmatmul(a.cpu(), w.cpu()),
-                   f"tiled serving ({b},{d})@({d},{n_cl})")
+                   f"splitk serving ({b},{d})@({d},{n_cl})")
         if not quick:
             fn = (lambda a_, w_: lambda: mm.modmatmul(a_, w_))(a, w)
             bb, by = bound(4.0 * (a.numel() + w.numel() + b * n_cl),
                            2.0 * b * d * n_cl)
-            ck.rows.append(dict(
-                kernel="modmatmul", path="tiled",
-                what=f"serving score GEMM, batch {b}",
-                shape=f"({b},{d})@({d},{n_cl})", ms=ck.time_ms(fn, 50),
-                device_ms=device_ms(torch, fn, 50),
-                plain_ms=ck.time_ms(lambda: ref.modmatmul(a, w), 3),
-                bound_ms=bb, bound_by=by))
-    log(f"kernels: tiled GEMM checks at the MPC baseline's and serving's "
-        f"shapes passed {dict(ck.checks)}")
+            rec = dict(shape=f"({b},{d})@({d},{n_cl})",
+                       ms=ck.time_ms(fn, 50),
+                       device_ms=device_ms(torch, fn, 50),
+                       plain_ms=ck.time_ms(lambda: ref.modmatmul(a, w), 3),
+                       bound_ms=bb, bound_by=by, path="splitk")
+            ck.rows.append(dict(kernel="modmatmul",
+                                what=f"serving score GEMM, batch {b}", **rec))
+            rows.setdefault("modmatmul.splitk", rec)
+    log(f"kernels: row-dot and split-K GEMM checks at the MPC baseline's "
+        f"and serving's shapes passed {dict(ck.checks)}")
+    return rows
 
 
 def phase_golden_protocols(np) -> None:
@@ -1069,7 +1209,7 @@ def fit_protocol(ck: Checker, protocol: str, engine: str = "jit",
         with shape_log:
             res = api.fit(wl, protocol, engine, key=0, iters=FULL_ITERS,
                           device="cuda")
-    counts = ops.launch_counts()
+    counts = run_counts()
     return res, counts, torch.cuda.max_memory_allocated() - held
 
 
@@ -1107,8 +1247,8 @@ def phase_protocols(ck: Checker, np, fused_summary: dict) -> tuple:
     (FULL_WORKLOAD, FULL_ITERS): each fit's counts reset just before it and
     read just after; setup s, ms/iter, peak memory, a profile of two more
     steps, accuracy; the GEMMs of mpc_baseline and secure_agg by shape and
-    path (the baseline's Z = X W on the tiled kernel, as expected).
-    Returns ({protocol: summary}, {protocol: counts}, the float result)."""
+    path (the baseline's Z = X W on the row-dot kernel, none on the tiled
+    one).  Returns ({protocol: summary}, {protocol: counts}, the float result)."""
     torch = ck.torch
     from repro_torch import api
     from repro_torch.core import cost_model
@@ -1137,12 +1277,14 @@ def phase_protocols(ck: Checker, np, fused_summary: dict) -> tuple:
         if shapes is not None:
             summary["gemm_shapes"] = gemm_table(ck, shapes, FULL_ITERS)
             log_gemm_table(protocol, summary["gemm_shapes"])
-            if protocol == "mpc_baseline":      # Z = X W, as expected
-                tiled = [r for r in summary["gemm_shapes"]
-                         if r["path"] == "tiled"]
-                assert tiled and all(r["kernel"] == "modmatmul_batched"
-                                     and r["phase"] == "step"
-                                     for r in tiled), tiled
+            no_tiled_gemm(summary["gemm_shapes"], protocol)
+            if protocol == "mpc_baseline":      # Z = X W on the row-dot path
+                rowdot = [r for r in summary["gemm_shapes"]
+                          if r["path"] == "rowdot"]
+                assert rowdot and all(r["kernel"] == "modmatmul_batched"
+                                      and r["phase"] == "step"
+                                      and r["k"] == wl.d for r in rowdot), \
+                    rowdot
         if protocol == "float":
             float_res = res
             # full width: float32 (jit) within 1e-3 of float64 (eager)
@@ -1208,12 +1350,19 @@ def phase_serve(ck: Checker, np, copml_res, float_res) -> tuple:
             got = np.concatenate([srv.score_field(q[i:i + b])
                                   for i in range(0, len(q), b)])
             np.testing.assert_array_equal(got, want, err_msg=f"{label} {b}")
+            shapes = ShapeLog(None)
             ops.reset_launches()
-            preds, stats = srv.serve(q)
-            run = ops.launch_counts()
+            with shapes:
+                preds, stats = srv.serve(q)
+            run = run_counts()
             for name in SERVE_PATH:
                 assert run[name] > 0, f"{name} not launched serving"
+            assert run["gemm:splitk"] == stats["batches"], run
             counts.update(run)
+            # 50 "iterations": the per-fit columns read per 1024 queries
+            gemms = gemm_table(ck, shapes, 50)
+            log_gemm_table(f"serve {label} {b}", gemms)
+            no_tiled_gemm(gemms, "serve")
             np.testing.assert_array_equal(      # the sign of each logit
                 preds, (np.where(want > ck.P // 2, want - ck.P, want)[:, 0]
                         > 0).astype(np.int32))
@@ -1222,7 +1371,8 @@ def phase_serve(ck: Checker, np, copml_res, float_res) -> tuple:
             out[f"{label} batch {b}"] = dict(
                 queries_per_s=stats["queries_per_s"], serve_s=stats["serve_s"],
                 encode_s=stats["encode_s"], batches=stats["batches"],
-                device_ms_per_window=window, launches=run)
+                device_ms_per_window=window, launches=run,
+                gemm_shapes=gemms)
             log(f"serve: {label} {wl.name} batch {b}: "
                 f"{stats['queries_per_s']:.0f} queries/s over "
                 f"{stats['queries']} queries, encode "
@@ -1306,7 +1456,7 @@ def fit_full(ck: Checker, mode: str, record=(), faults=None,
             with shape_log:
                 res = api.fit(wl, "copml", "jit", key=0, iters=FULL_ITERS,
                               faults=faults, device="cuda")
-        counts = ops.launch_counts()
+        counts = run_counts()
     finally:
         for name in record:
             setattr(ops, name, real[name])
@@ -1430,7 +1580,10 @@ def phase_faulty(ck: Checker, np, fused) -> dict:
 
 # (label, kernel, A or x shape, B or W shape, C): the redesigned kernels at
 # the main path's shapes, for --compare (cifar10_case2: N=50, mk=902,
-# d=3073, K=10, T=7); X^T y's A is the transposed view of (N, m, d) shares
+# d=3073, K=10, T=7); X^T y's A is the transposed view of (N, m, d) shares,
+# the MPC baseline's Z = X W a contiguous (N_g, m/3, d) share tensor
+# (row-dot; tiled before), serving's (B, d) @ (d, N) (split-K; tiled
+# before); tests/test_torch_gemm_routes.py holds each to its path
 COMPARE_SHAPES = [
     ("fused_step", "fused_step", (50, 902, 3073), None, 1),
     ("fused_step C=10", "fused_step", (50, 902, 3073), None, 10),
@@ -1448,11 +1601,33 @@ COMPARE_SHAPES = [
      0),
     ("X^T y C=10 (a 10-class objective)", "modmatmul_batched",
      (50, 3073, 9019), (50, 9019, 10), 0),
+    ("MPC baseline Z = X W (per step and group)", "modmatmul_batched",
+     (16, 3006, 3073), (16, 3073, 1), 0),
+    ("MPC baseline Z = X W C=10", "modmatmul_batched", (16, 3006, 3073),
+     (16, 3073, 10), 0),
+    ("serving score GEMM, batch 1", "modmatmul", (1, 3073), (3073, 50), 0),
+    ("serving score GEMM, batch 32", "modmatmul", (32, 3073), (3073, 50), 0),
+    ("serving score GEMM, batch 128", "modmatmul", (128, 3073), (3073, 50),
+     0),
     # (label, "poly_eval", (L,), None, degree)
     ("poly_eval L=45100 degree 1", "poly_eval", (45100,), None, 1),
     ("poly_eval L=2^26 degree 1", "poly_eval", (1 << 26,), None, 1),
     ("poly_eval L=2^26 degree 7", "poly_eval", (1 << 26,), None, 7),
 ]
+
+
+def gemm_operands(make, label: str, name: str, ashape, bshape) -> tuple:
+    """A and B of a COMPARE_SHAPES GEMM from make(*shape): X^T y's A the
+    transposed view of (N, m, d) shares, the per-step model encode's A one
+    matrix expanded over the batch (stride 0), every other A contiguous."""
+    b = make(*bshape)
+    if "X^T y" in label:
+        a = make(ashape[0], ashape[2], ashape[1]).transpose(1, 2)
+    elif label.startswith("model encode"):
+        a = make(*ashape[1:])[None].expand(*ashape)
+    else:
+        a = make(*ashape)
+    return a, b
 
 
 def time_only(src: str) -> dict:
@@ -1485,13 +1660,7 @@ def time_only(src: str) -> dict:
             z, co = ck.field(*ashape), ck.field(c + 1)
             fn = (lambda z_, c_: lambda: fp.poly_eval(z_, c_))(z, co)
         else:
-            b = ck.field(*bshape)
-            if "X^T y" in label:
-                a = ck.field(ashape[0], ashape[2], ashape[1]).transpose(1, 2)
-            elif name == "modmatmul_batched":
-                a = ck.field(*ashape[1:])[None].expand(*ashape)
-            else:
-                a = ck.field(*ashape)
+            a, b = gemm_operands(ck.field, label, name, ashape, bshape)
             fn = (lambda f, a_, b_: lambda: f(a_, b_))(getattr(mm, name), a, b)
         out[label] = device_ms(torch, fn, 5 if "X" in label else 20)
         fn = None
@@ -1554,7 +1723,7 @@ def main() -> int:
     ck = Checker(torch, np, P)
     rows = phase_kernels(ck, args.quick)
     rows.update(phase_kernels_siloed(ck, args.quick))
-    phase_kernels_protocols(ck, args.quick)
+    rows.update(phase_kernels_protocols(ck, args.quick))
     phase_golden(np)
     phase_golden_siloed(np)
     phase_golden_protocols(np)
@@ -1588,6 +1757,15 @@ def main() -> int:
                 **{f"{p} cifar10_case2": c[name]
                    for p, c in report["protocol_launches"].items()},
                 "serve cifar10_case2": report["serve_launches"].get(name, 0)}
+        runs = {"fused": fused_counts, **report["protocol_launches"],
+                "serve": report["serve_launches"]}
+        for name, (gpath, run) in PATH_ENTRIES.items():
+            key = f"gemm:{gpath}"
+            counts[name] = runs[run].get(key, 0)
+            assert counts[name] > 0, f"{gpath} was not launched on {run}"
+            path[name] = f"{run} cifar10_case2"
+            by_path[name] = {f"{r} cifar10_case2": c.get(key, 0)
+                             for r, c in runs.items()}
     report["shapes"] = ck.rows
 
     kernels = []

@@ -17,6 +17,12 @@ JAX package's api.
 from ..core.objectives import (OBJECTIVES, SecureObjective,
                                multiclass_logistic)
 from ..core.objectives import get as get_objective
+from ..core.objectives import names as objective_names
+from ..core.objectives import register as register_objective
+from .engine import EAGER, JIT, PROC, SHARDED, EngineKind, EngineSpec
+from .engine import names as engine_names
+from .engine import parse as parse_engine
+from .engine import register_kind as register_engine_kind
 from .faults import FaultPlan, FaultPlanViolation
 from .protocols import ENGINES, PROTOCOLS, Protocol, fault_threshold, fit
 from .protocols import names as protocol_names
@@ -29,10 +35,13 @@ from .workloads import names as workload_names
 from .workloads import register as register_workload
 
 __all__ = [
-    "ENGINES", "OBJECTIVES", "PROTOCOLS", "SERVE_ENGINES", "FaultPlan",
+    "EAGER", "ENGINES", "JIT", "OBJECTIVES", "PROC", "PROTOCOLS",
+    "SERVE_ENGINES", "SHARDED", "EngineKind", "EngineSpec", "FaultPlan",
     "FaultPlanViolation", "Protocol", "SecureObjective", "TrainResult",
     "WORKLOADS", "Workload", "accuracy_curve", "accuracy_of",
-    "fault_threshold", "fit", "get_objective", "get_workload",
-    "multiclass_logistic", "protocol_names", "register_protocol",
-    "register_workload", "serve", "workload_names",
+    "engine_names", "fault_threshold", "fit", "get_objective",
+    "get_workload", "multiclass_logistic", "objective_names",
+    "parse_engine", "protocol_names", "register_engine_kind",
+    "register_objective", "register_protocol", "register_workload", "serve",
+    "workload_names",
 ]

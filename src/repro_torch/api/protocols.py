@@ -17,10 +17,11 @@ paper's Section V comparison as a registry, with the JAX package's names:
                 the exchange (core/secure_agg); fault plans pick each
                 round's T+1 share holders.
 
-The engines are "jit" and "eager".  For the field protocols they are the
-same Python loop (no CUDA graph yet); for float and poly_float "eager" is
-the float64 trainer and "jit" the float32 one, as in the JAX package.  The
-sharded and proc engines are not ported.  A run uses the CUDA card unless
+The engines are "jit" and "eager", parsed by api/engine.py as in the JAX
+package ("jit:4" raises; a result records the spec's label).  For the
+field protocols they are the same Python loop (no CUDA graph yet); for
+float and poly_float "eager" is the float64 trainer and "jit" the float32
+one, as in the JAX package.  The sharded and proc engines are not ported.  A run uses the CUDA card unless
 the caller passes device="cpu"; with no card and no device it raises.
 Drivers are cached per (workload, device[, REPRO_FUSED_STEP]).
 """
@@ -35,14 +36,15 @@ from ..core import baselines, cost_model, secure_agg
 from ..core import objectives as objectives_mod
 from ..core.protocol import Copml, fused_mode_from_env, resolve_device
 from ..train import elastic
+from . import engine as engine_mod
 from . import faults as faults_mod
 from . import result as result_mod
 from . import workloads as workloads_mod
 
 ENGINES = ("jit", "eager")
 # engines of the JAX package that this port does not run yet
-NOT_PORTED = {"sharded": "the multi-device engine, ROADMAP Queue A item 10",
-              "proc": "the proc:N runtime, ROADMAP Queue A item 11"}
+NOT_PORTED = {"sharded": "the multi-device engine, ROADMAP Queue A item 3",
+              "proc": "the proc:N runtime, ROADMAP Queue A item 2"}
 
 PROTOCOLS: dict = {}
 
@@ -70,7 +72,7 @@ def fit(workload, protocol: str = "copml", engine: str = "jit", *, key=0,
 
     workload: registry name or a workloads.Workload.
     protocol: a name in PROTOCOLS.
-    engine:   "jit" | "eager".
+    engine:   "jit" | "eager" | an api.EngineSpec (api.parse_engine).
     key:      int seed, or a JAX key's data as a (2,) uint32 array.
     iters:    GD iterations (None = the workload's default).
     subset:   decode subset (copml, secure_agg); None inherits the
@@ -100,14 +102,15 @@ class Protocol:
 
     def fit(self, workload, engine="jit", *, key=0, iters=None, subset=None,
             history=True, faults=None, device=None) -> result_mod.TrainResult:
+        spec = engine_mod.parse(engine)
+        if spec.kind not in self.engines:
+            later = f"; the {spec.kind} engine is not ported yet " \
+                f"({NOT_PORTED[spec.kind]})" if spec.kind in NOT_PORTED \
+                else ""
+            raise ValueError(f"protocol {self.name!r} supports engines "
+                             f"{self.engines}, not {spec.label!r}{later}")
         dev = resolve_device(device)
         wl = workloads_mod.resolve(workload)
-        kind = str(engine).split(":")[0]
-        if kind not in self.engines:
-            later = f"; the {kind} engine is not ported yet " \
-                f"({NOT_PORTED[kind]})" if kind in NOT_PORTED else ""
-            raise ValueError(f"protocol {self.name!r} supports engines "
-                             f"{self.engines}, not {engine!r}{later}")
         iters = wl.iters if iters is None else int(iters)
         if faults is not None:
             if subset is not None:
@@ -135,8 +138,8 @@ class Protocol:
 
         timings: dict = {}
         t0 = time.perf_counter()
-        w, hist, state = self._run(wl, kind, key, iters, subset, history,
-                                   plan, dev, timings)
+        w, hist, state = self._run(wl, spec.kind, key, iters, subset,
+                                   history, plan, dev, timings)
         w = w.cpu().numpy()
         hist = None if hist is None else hist.cpu().numpy()
         wall = time.perf_counter() - t0
@@ -146,7 +149,8 @@ class Protocol:
         acc = None if hist is None else np.asarray(
             [obj.score(w_t, x_eval, y_eval) for w_t in hist])
         return result_mod.TrainResult(
-            workload=wl.name, protocol=self.name, engine=engine, iters=iters,
+            workload=wl.name, protocol=self.name, engine=spec.label,
+            iters=iters,
             weights=w, wall_time_s=wall, history=hist, accuracy=acc,
             final_accuracy=obj.score(w, x_eval, y_eval),
             per_class_accuracy=obj.per_class_accuracy(w, x_eval, y_eval),

@@ -20,6 +20,7 @@ import numpy as np
 from ..core import random as jrandom
 from ..serve import coded
 from ..serve.server import SERVE_KINDS, SecureServer, check_kind
+from . import engine as engine_mod
 from . import workloads as workloads_mod
 
 #: engine kinds api.serve accepts (see SERVE_KINDS in serve/server)
@@ -35,16 +36,17 @@ def serve(workload, result, engine="jit", *, key: int = 0,
                 result was trained on -- shape-checked)
     result      an api.fit TrainResult; a COPML result's share state is
                 re-shared directly (encode path never opens the model)
-    engine      "eager" | "jit"
+    engine      "eager" | "jit" (a spec string or api.EngineSpec, parsed
+                as api.fit parses it)
     key         seed of the one-time re-share randomness (an int, or a
                 JAX key's data as a (2,) uint32 array)
     batch_size  micro-batch window size (queries per scoring dispatch)
     window_ms   max milliseconds a query waits for its window to fill
     device      "cuda" (default when a card is present) or "cpu"
     """
+    spec = engine_mod.parse(engine)
+    check_kind(spec.kind)
     wl = workloads_mod.resolve(workload)
-    kind = str(engine).split(":")[0]
-    check_kind(kind)
     w = np.asarray(result.weights)
     if w.shape != wl.w_shape:
         raise ValueError(
@@ -58,6 +60,6 @@ def serve(workload, result, engine="jit", *, key: int = 0,
     model = coded.encode_model(jrandom.as_key(key), result, wl.cfg,
                                wl.objective, device)
     return SecureServer(workload=wl.name, protocol=result.protocol,
-                        engine=str(engine), kind=kind,
+                        engine=spec.label, kind=spec.kind,
                         batch_size=batch_size, window_ms=window_ms,
                         model=model, objective=wl.objective)

@@ -114,38 +114,6 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
-// Sums V = 2^v values over a warp with V - 1 + 5 - v shuffles instead of
-// 5 V: at offset 16, 8, ... each lane keeps half of its values and adds
-// its partner's copy of that half.  Each value is < p, so every sum of 32
-// fits 32 bits.  Returns the full sum of value multi_sum_index<V>(lane);
-// the 32 / V lanes that share an index all hold it.
-template <int V>
-__device__ __forceinline__ uint32_t multi_warp_sum(uint32_t (&v)[V], int lane) {
-  int off = 16;
-#pragma unroll
-  for (int half = V / 2; half >= 1; half /= 2, off /= 2) {
-    const bool upper = lane & off;
-#pragma unroll
-    for (int k = 0; k < half; ++k) {
-      const uint32_t send = upper ? v[k] : v[k + half];
-      const uint32_t keep = upper ? v[k + half] : v[k];
-      v[k] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-    }
-  }
-  uint32_t r = v[0];
-  for (; off > 0; off /= 2) r += __shfl_xor_sync(0xffffffffu, r, off);
-  return r;
-}
-
-template <int V>
-__device__ __forceinline__ int multi_sum_index(int lane) {
-  int idx = 0;
-#pragma unroll
-  for (int half = V / 2, off = 16; half >= 1; half /= 2, off /= 2)
-    if (lane & off) idx += half;
-  return idx;
-}
-
 // Pass 1 of one slice: lane sums of RB rows x CB classes over the warp's
 // column chunk (ceil(d / 16 / 32) < kNoReduceTerms products each), reduced
 // once with reduce_p, summed over the warp, and left in zs[(i, c, warp)].

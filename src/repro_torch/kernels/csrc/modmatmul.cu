@@ -7,7 +7,7 @@
 // way: every product of two field elements is < 2^52, summed in uint64 and
 // reduced with reduce_p (field.cuh), never with a 64-bit `%`.
 //
-// Three kernels, one for each kind of GEMM the port runs; kernels/plan.py
+// Five kernels, one for each kind of GEMM the port runs; kernels/plan.py
 // gemm_path picks one from the shapes and strides.
 //
 // Bound on an H100: every GEMM of the main path except X^T y has M <= 64
@@ -65,12 +65,41 @@
 // library would carry the gradient kernel; a split-K GEMV keeps any N <= 16
 // in registers at any M.
 //
-// tiled_kernel (every other call: a contiguous or strided A with K > 64,
-// N > 16, transposed or strided B).  A block of 256 threads owns a BM x BN
-// output tile and walks K in BK = 16 slices staged through shared memory;
-// each thread keeps a TM x TN register tile of uint64 sums, reduced every
-// 2048 terms.  Operands are read through their strides; ragged edges are
-// masked, never padded.
+// rowdot_kernel (A's K-stride 1 and N <= 16, when the thin and column-sum
+// paths do not take the GEMM: the MPC baseline's Z = X W, a contiguous
+// (16, 3006, 3073) share tensor times (16, 3073, C'), C' = 1 or 10).  It
+// reads A once, 591 MB at cifar10_case2 (0.177 ms at 3.35 TB/s), for 2
+// IMADs per element and class: bytes-bound at C' = 1, near the IMAD rate
+// at C' = 10.  A GEMV a row: a CTA stages B[b] class-major in shared memory
+// (12 KB at C' = 1, 123 KB at C' = 10; in chunks of K past a block's
+// shared memory) and walks a strip of rows of one batch (kernels/plan.py
+// rowdot_launch deals the resident CTAs evenly over the batches); each warp
+// sums RB rows at once, its lanes on consecutive columns with 4-byte loads
+// of 16 words a lane in flight -- rows 4, 8 or 12 bytes off a 16-byte line
+// need no peel -- and each staged word of B serves RB MACs.  A lane sums at
+// most kch / 32 <= kNoReduceTerms products, reduces once with reduce_p, and
+// a multi-value butterfly (field.cuh multi_warp_sum) sums the warp's
+// RB x CMAX values.  A chunk of K past the first adds into the output.
+//
+// splitk_kernel (M <= 128, K > 64 and B's columns unit stride, when no path
+// above takes it: serving's (B, 3073) @ (3073, 50) scores, B <= 128).  So
+// few output tiles would leave one or two CTAs to walk all of K, so K is
+// cut in splits of kc rows (kernels/plan.py splitk_launch: enough splits
+// for ~2 CTAs an SM, 49 of 64 rows at K = 3073).  A CTA stages its (M, 64) slab
+// of A in shared memory (32 KB at M = 128), each thread keeps 64 rows of
+// one column of B in registers (coalesced loads) and walks its row group's
+// outputs with A read as a 16-byte broadcast: 64 products < 2^58, one
+// reduce_p58 an output a pass, added mod p across the split's passes.  Each
+// split writes (splits, batch, M, N) partials < p; colsum_combine sums them
+// and reduces once.
+//
+// tiled_kernel (every other call: N > 16 with M > 128, or a strided B with
+// K > 64).  A block of 256 threads owns a BM x BN output tile and walks K
+// in BK = 16 slices staged through shared memory, rows padded by two words
+// so that a K-contiguous operand's stores (16 consecutive threads on one
+// column) fall in 32 banks; each thread keeps a TM x TN register tile of
+// uint64 sums, reduced every 2048 terms.  Operands are read through their
+// strides; ragged edges are masked, never padded.
 
 #include "field.cuh"
 
@@ -79,6 +108,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kBK = 16;
 constexpr int kReduceTiles = 2048 / kBK;
+constexpr int kPad = 2;        // tiled rows: 16 k x 2 m of a warp, 32 banks
 constexpr int kThinThreads = 256;
 constexpr int kThinMaxM = 64;
 
@@ -292,6 +322,238 @@ cudaError_t launch_colsum(const int32_t* a, int64_t sab, int64_t sak,
   return cudaGetLastError();
 }
 
+constexpr int kRowdotThreads = 512;
+constexpr int kRowdotWarps = kRowdotThreads / 32;
+constexpr int kRowdotMaxN = 16;
+constexpr int kRowdotMaxChunk = 32 * kNoReduceTerms;   // kch / 32 terms
+constexpr int kSmemMax = 232448;                       // a block's, H100
+
+constexpr int pow2_at_least(int x) {
+  int v = 1;
+  while (v < x) v *= 2;
+  return v;
+}
+
+// rowdot_kernel's register shape for an instance: RB rows a warp (so a
+// staged word of B serves RB MACs); U 32-column steps of loads a loop step,
+// RB * U words a lane: 16 issued after a step's few MACs at CMAX <= 2, or
+// 8 prefetched a step ahead (PF) while the MACs of CMAX > 2 classes run
+// (on an H100 the prefetch took Z = X W at C = 10 from 0.49 to 0.43 ms and
+// at C = 1 from 0.21-0.24 to 0.25 ms); V values of the butterfly (RB *
+// CMAX padded to a power of two).
+template <int CMAX>
+struct RowdotShape {
+  static constexpr int RB = CMAX <= 2 ? 4 : CMAX <= 10 ? 2 : 1;
+  static constexpr bool PF = CMAX > 2;
+  static constexpr int U = (PF ? 8 : 16) / RB;
+  static constexpr int V = pow2_at_least(RB * CMAX);
+  static_assert(V <= 32, "a warp's butterfly sums at most 32 values");
+};
+
+// Words j, j + 32, ..., j + 32 (U - 1) of RB rows (zero past kn or a row
+// past the strip).
+template <int U, int RB>
+__device__ __forceinline__ void rowdot_loads(uint32_t (&xv)[U][RB],
+                                             const int32_t* const (&xr)[RB],
+                                             const bool (&ok)[RB], int j,
+                                             int kn) {
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int r = 0; r < RB; ++r)
+      xv[u][r] = (ok[r] && j + 32 * u < kn)
+                     ? (uint32_t)__ldg(xr[r] + j + 32 * u) : 0u;
+}
+
+// Rows [blockIdx.x * run, + run) of batch blockIdx.y; B[b] staged
+// class-major as bs[c * kch + k], classes past N zero.
+template <int CMAX>
+__global__ void __launch_bounds__(kRowdotThreads)
+rowdot_kernel(const int32_t* __restrict__ a, int64_t sab, int64_t sam,
+              const int32_t* __restrict__ b, int64_t sbb, int64_t sbk,
+              int64_t sbn, int32_t* __restrict__ c, int M, int N, int K,
+              int kch, int run) {
+  constexpr int RB = RowdotShape<CMAX>::RB;
+  constexpr int U = RowdotShape<CMAX>::U;
+  constexpr int V = RowdotShape<CMAX>::V;
+  constexpr bool PF = RowdotShape<CMAX>::PF;
+  extern __shared__ __align__(16) uint32_t bs[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t bz = blockIdx.y;
+  const int r0 = blockIdx.x * run, r1 = min(M, r0 + run);
+  const int32_t* ab = a + bz * sab;
+  const int32_t* bb = b + bz * sbb;
+  int32_t* cb = c + bz * M * N;
+
+  for (int k0 = 0; k0 < K; k0 += kch) {
+    const int kn = min(kch, K - k0);
+    __syncthreads();                             // the last chunk's reads
+    for (int e = threadIdx.x; e < CMAX * kn; e += kRowdotThreads) {
+      const int k = e / CMAX, cl = e % CMAX;
+      bs[cl * kch + k] =
+          cl < N ? (uint32_t)__ldg(bb + (int64_t)(k0 + k) * sbk + cl * sbn)
+                 : 0u;
+    }
+    __syncthreads();
+    for (int i0 = r0 + warp * RB; i0 < r1; i0 += kRowdotWarps * RB) {
+      const int32_t* xr[RB];
+      bool ok[RB];
+#pragma unroll
+      for (int r = 0; r < RB; ++r) {
+        ok[r] = i0 + r < r1;
+        xr[r] = ab + (int64_t)(ok[r] ? i0 + r : i0) * sam + k0;
+      }
+      uint32_t lo[RB][CMAX], hi[RB][CMAX];       // <= kch / 32 products
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+#pragma unroll
+        for (int cl = 0; cl < CMAX; ++cl) lo[r][cl] = hi[r][cl] = 0;
+      uint32_t xv[U][RB], xn[U][RB];
+      rowdot_loads<U, RB>(xv, xr, ok, lane, kn);
+      for (int j = lane; j < kn; j += 32 * U) {
+        if (PF) rowdot_loads<U, RB>(xn, xr, ok, j + 32 * U, kn);
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int jj = j + 32 * u;
+          if (jj < kn) {
+#pragma unroll
+            for (int cl = 0; cl < CMAX; ++cl) {
+              const uint32_t w = bs[cl * kch + jj];
+#pragma unroll
+              for (int r = 0; r < RB; ++r)
+                mac_wide(lo[r][cl], hi[r][cl], xv[u][r], w);
+            }
+          }
+        }
+        if (PF) {
+#pragma unroll
+          for (int u = 0; u < U; ++u)
+#pragma unroll
+            for (int r = 0; r < RB; ++r) xv[u][r] = xn[u][r];
+        } else {
+          rowdot_loads<U, RB>(xv, xr, ok, j + 32 * U, kn);
+        }
+      }
+      uint32_t v[V];
+#pragma unroll
+      for (int q = RB * CMAX; q < V; ++q) v[q] = 0u;
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+#pragma unroll
+        for (int cl = 0; cl < CMAX; ++cl)
+          v[r * CMAX + cl] = reduce_p(wide(lo[r][cl], hi[r][cl]));
+      const uint32_t sum = multi_warp_sum<V>(v, lane);     // < 32 p
+      const int idx = multi_sum_index<V>(lane);
+      const int i = i0 + idx / CMAX, cl = idx % CMAX;
+      if (lane % (32 / V) == 0 && idx < RB * CMAX && i < r1 && cl < N) {
+        int32_t* o = cb + (int64_t)i * N + cl;
+        const uint32_t z = reduce_p(sum);
+        *o = (int32_t)(k0 == 0 ? z : addp((uint32_t)*o, z));
+      }
+    }
+  }
+}
+
+// Opens rowdot_kernel<CMAX>'s dynamic shared memory to at least `smem`
+// bytes.  The attribute costs host time, so it is set only when an
+// instance needs more than it was opened to (one card per process).
+template <int CMAX>
+cudaError_t open_rowdot(size_t smem) {
+  static size_t opened = 0;
+  if (smem <= opened) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      rowdot_kernel<CMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err == cudaSuccess) opened = smem;
+  return err;
+}
+
+template <int CMAX>
+cudaError_t launch_rowdot(const int32_t* a, int64_t sab, int64_t sam,
+                          const int32_t* b, int64_t sbb, int64_t sbk,
+                          int64_t sbn, int32_t* c, int batch, int M, int N,
+                          int K, int kch, int run, int cpb, size_t smem,
+                          cudaStream_t stream) {
+  cudaError_t err = open_rowdot<CMAX>(smem);
+  if (err != cudaSuccess) return err;
+  rowdot_kernel<CMAX><<<dim3(cpb, batch), kRowdotThreads, smem, stream>>>(
+      a, sab, sam, b, sbb, sbk, sbn, c, M, N, K, kch, run);
+  return cudaGetLastError();
+}
+
+// SMs x resident CTAs of rowdot_kernel<CMAX> at `smem` bytes.
+template <int CMAX>
+cudaError_t rowdot_slots(size_t smem, int* slots) {
+  cudaError_t err = open_rowdot<CMAX>(smem);
+  if (err != cudaSuccess) return err;
+  int occ = 0, sms = 0, dev = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &occ, rowdot_kernel<CMAX>, kRowdotThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (occ < 1) return cudaErrorInvalidConfiguration;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *slots = sms * occ;
+  return err;
+}
+
+constexpr int kSplitkThreads = 256;
+constexpr int kSplitkMaxM = 128;
+constexpr int kSplitkSub = kNoReduce58Terms;   // rows of K a pass
+
+// Split s = blockIdx.x / gx of K (rows [s kc, s kc + kc)), columns
+// [(blockIdx.x % gx) bn, + bn) of batch blockIdx.y; blockDim.x = bn * row
+// groups.  Its partials (< p) go to dst[s, b, :, columns].
+__global__ void __launch_bounds__(kSplitkThreads)
+splitk_kernel(const int32_t* __restrict__ a, int64_t sab, int64_t sam,
+              int64_t sak, const int32_t* __restrict__ b, int64_t sbb,
+              int64_t sbk, int64_t sbn, uint32_t* __restrict__ dst,
+              int batch, int M, int N, int K, int kc, int bn, int gx) {
+  __shared__ __align__(16) uint32_t As[kSplitkMaxM * kSplitkSub];
+  const int tid = threadIdx.x, groups = blockDim.x / bn;
+  const int s = blockIdx.x / gx;
+  const int col = (blockIdx.x % gx) * bn + tid % bn, rg = tid / bn;
+  const bool live = col < N;
+  const int64_t bz = blockIdx.y;
+  const int k_lo = s * kc, k_hi = min(K, k_lo + kc);
+  a += bz * sab;
+  b += bz * sbb;
+  dst += ((int64_t)s * batch + bz) * M * N;
+
+  for (int k0 = k_lo; k0 < k_hi; k0 += kSplitkSub) {
+    const int kn = min(kSplitkSub, k_hi - k0);
+    uint32_t bv[kSplitkSub];                     // zero past kn and N
+#pragma unroll
+    for (int k = 0; k < kSplitkSub; ++k)
+      bv[k] = (live && k < kn)
+                  ? (uint32_t)__ldg(b + (int64_t)(k0 + k) * sbk + col * sbn)
+                  : 0u;
+    __syncthreads();                             // the last pass's reads
+    for (int e = tid; e < M * kSplitkSub; e += blockDim.x) {
+      const int i = e / kSplitkSub, k = e % kSplitkSub;
+      As[e] = k < kn ? (uint32_t)a[i * sam + (int64_t)(k0 + k) * sak] : 0u;
+    }
+    __syncthreads();
+    if (!live) continue;
+    for (int i = rg; i < M; i += groups) {
+      const uint4* ar = reinterpret_cast<const uint4*>(As + i * kSplitkSub);
+      uint32_t lo = 0, hi = 0;
+#pragma unroll
+      for (int q = 0; q < kSplitkSub / 4; ++q) {
+        const uint4 v = ar[q];
+        mac_wide(lo, hi, v.x, bv[4 * q]);
+        mac_wide(lo, hi, v.y, bv[4 * q + 1]);
+        mac_wide(lo, hi, v.z, bv[4 * q + 2]);
+        mac_wide(lo, hi, v.w, bv[4 * q + 3]);
+      }
+      const uint32_t z = reduce_p58(wide(lo, hi));  // < 64 * 2^52
+      uint32_t* o = dst + (int64_t)i * N + col;
+      *o = k0 == k_lo ? z : addp(*o, z);
+    }
+  }
+}
+
 template <int BM, int BN, int TM, int TN>
 __global__ void __launch_bounds__(kThreads)
 tiled_kernel(const int32_t* __restrict__ a, int64_t sab, int64_t sam,
@@ -301,8 +563,8 @@ tiled_kernel(const int32_t* __restrict__ a, int64_t sab, int64_t sam,
   constexpr int TX = BN / TN;
   constexpr int TY = BM / TM;
   static_assert(TX * TY == kThreads, "tile shape must use 256 threads");
-  __shared__ uint32_t As[kBK][BM];
-  __shared__ uint32_t Bs[kBK][BN];
+  __shared__ uint32_t As[kBK][BM + kPad];
+  __shared__ uint32_t Bs[kBK][BN + kPad];
 
   const int tid = threadIdx.x;
   const int tx = tid % TX;
@@ -470,4 +732,89 @@ extern "C" int repro_modmatmul_colsum(const void* a, int64_t sab, int64_t sam,
   COLSUM(1) COLSUM(2) COLSUM(4) COLSUM(8) COLSUM(10) COLSUM(16)
 #undef COLSUM
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same product on rowdot_kernel's (cmax) instance, as kernels/plan.py
+// rowdot_launch decided: B staged kch rows of K at a time in smem bytes,
+// strips of run rows, cpb CTAs a batch.  Refused unless A's K-stride is 1,
+// 1 <= N <= cmax, kch covers at most kRowdotMaxChunk rows (a lane's
+// kch / 32 <= kNoReduceTerms products) and fits smem, and the strips cover
+// M exactly.  Returns cudaGetLastError() after the launch (0 = success).
+extern "C" int repro_modmatmul_rowdot(const void* a, int64_t sab, int64_t sam,
+                                      int64_t sak, const void* b, int64_t sbb,
+                                      int64_t sbk, int64_t sbn, void* c,
+                                      int batch, int M, int N, int K,
+                                      int cmax, int kch, int run, int cpb,
+                                      int64_t smem, void* stream) {
+  if (sak != 1 || batch < 1 || batch > 65535 || M < 1 || K < 1 || N < 1 ||
+      N > cmax || cmax > kRowdotMaxN || kch < 1 || kch > K ||
+      kch > kRowdotMaxChunk || smem < (int64_t)4 * cmax * kch ||
+      smem > kSmemMax || run < 1 || cpb < 1 || (int64_t)run * cpb < M ||
+      (int64_t)run * (cpb - 1) >= M)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto pa = static_cast<const int32_t*>(a);
+  auto pb = static_cast<const int32_t*>(b);
+  auto pc = static_cast<int32_t*>(c);
+  // the instances kernels/plan.py ROWDOT_CMAX names
+#define ROWDOT(CMAX)                                                        \
+  if (cmax == CMAX)                                                         \
+    return static_cast<int>(launch_rowdot<CMAX>(                            \
+        pa, sab, sam, pb, sbb, sbk, sbn, pc, batch, M, N, K, kch, run, cpb, \
+        (size_t)smem, s));
+  ROWDOT(1) ROWDOT(2) ROWDOT(4) ROWDOT(8) ROWDOT(10) ROWDOT(16)
+#undef ROWDOT
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Resident CTAs of rowdot_kernel's (cmax) instance at smem bytes of
+// dynamic shared memory, SMs x CTAs an SM, into *slots;
+// kernels/plan.py rowdot_launch deals them over the batches.
+extern "C" int repro_modmatmul_rowdot_slots(int cmax, int64_t smem,
+                                            int* slots) {
+  if (smem < 0 || smem > kSmemMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define ROWDOT(CMAX)                                                        \
+  if (cmax == CMAX)                                                         \
+    return static_cast<int>(rowdot_slots<CMAX>((size_t)smem, slots));
+  ROWDOT(1) ROWDOT(2) ROWDOT(4) ROWDOT(8) ROWDOT(10) ROWDOT(16)
+#undef ROWDOT
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The same product on splitk_kernel, as kernels/plan.py splitk_launch
+// decided: splits of kc rows of K, gx column blocks of bn columns, bn * rg
+// threads a CTA; part is a (splits, batch, M, N) int32 scratch (unused
+// when splits = 1) that colsum_combine sums into c.  Refused unless
+// 1 <= M <= 128, bn is a multiple of 32 with bn * rg <= 256, the column
+// blocks cover N and the splits cover K exactly, with kc <= kNoReduceTerms.
+// Returns cudaGetLastError() after the launches (0 = success).
+extern "C" int repro_modmatmul_splitk(const void* a, int64_t sab, int64_t sam,
+                                      int64_t sak, const void* b, int64_t sbb,
+                                      int64_t sbk, int64_t sbn, void* c,
+                                      void* part, int batch, int M, int N,
+                                      int K, int bn, int rg, int gx, int kc,
+                                      int splits, void* stream) {
+  if (batch < 1 || batch > 65535 || M < 1 || M > kSplitkMaxM || K < 1 ||
+      N < 1 || bn < 32 || bn % 32 != 0 || rg < 1 ||
+      bn * rg > kSplitkThreads || gx < 1 || (int64_t)gx * bn < N ||
+      (int64_t)(gx - 1) * bn >= N || kc < 1 || kc > kNoReduceTerms ||
+      splits < 1 || (int64_t)splits * kc < K ||
+      (int64_t)(splits - 1) * kc >= K ||
+      (int64_t)gx * splits > 0x7fffffff || (splits > 1 && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  uint32_t* dst = splits > 1 ? static_cast<uint32_t*>(part)
+                             : static_cast<uint32_t*>(c);
+  splitk_kernel<<<dim3(gx * splits, batch), bn * rg, 0, s>>>(
+      static_cast<const int32_t*>(a), sab, sam, sak,
+      static_cast<const int32_t*>(b), sbb, sbk, sbn, dst, batch, M, N, K, kc,
+      bn, gx);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const int64_t L = (int64_t)batch * M * N;
+  colsum_combine<<<(unsigned)((L + kThreads - 1) / kThreads), kThreads, 0,
+                   s>>>(static_cast<const uint32_t*>(part),
+                        static_cast<int32_t*>(c), L, splits);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -5,7 +5,8 @@ CUDA tensor goes to the hand-written kernel, or the launcher raises.  There
 is no fallback from a kernel to its plain version and no tuning knob.
 
 LAUNCHES counts the kernel launches of each op (CPU calls count nothing),
-so a run can show that its main path went through the kernels.
+so a run can show that its main path went through the kernels;
+gemm_path_counts breaks the field GEMM's launches down by kernel path.
 """
 
 from __future__ import annotations
@@ -26,10 +27,17 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    _mm.PATH_LAUNCHES.clear()
 
 
 def launch_counts() -> dict:
     return {k: LAUNCHES[k] for k in KERNELS}
+
+
+def gemm_path_counts() -> dict:
+    """Launches of modmatmul[_batched] by plan.gemm_path ("thin", "colsum",
+    "rowdot", "splitk", "tiled") since the last reset."""
+    return {p: _mm.PATH_LAUNCHES[p] for p in _mm.PATHS}
 
 
 def modmatmul(a, b):

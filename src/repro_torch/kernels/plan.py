@@ -4,9 +4,12 @@ Every launch parameter of the CUDA kernels is decided here, once, and
 passed to csrc/ by the launchers (csrc/ only checks them against the
 kernels' bounds), so the CPU tests reach the code that decides:
 
-- `gemm_path` / `thin_launch` / `colsum_launch`: which modmatmul kernel a
-  GEMM takes, the thin kernel's instance (`THIN_KMAX`) and grid, and the
-  column-sum kernel's instance (`COLSUM_CMAX`), K splits and grid;
+- `gemm_path` / `thin_launch` / `colsum_launch` / `rowdot_launch` /
+  `splitk_launch`: which modmatmul kernel a GEMM takes, the thin kernel's
+  instance (`THIN_KMAX`) and grid, the column-sum kernel's instance
+  (`COLSUM_CMAX`), K splits and grid, the row-dot kernel's instance, K
+  chunk, shared memory and row strips, and the split-K kernel's column
+  block, row groups and K splits;
 - `gradient_plan`, `stage_bytes`, `strip_run`: the gradient kernel's
   accumulator mode, slice height, ring depth and stage size, shared
   memory, and the strips its CTAs walk;
@@ -50,6 +53,15 @@ COLSUM_CMAX = (1, 2, 4, 8, 10, 16)
 COLSUM_WARPS = 8                    # warp tasks a CTA
 COLSUM_ROWS = 32                    # rows of B a warp stages at once
 COLSUM_TASKS_PER_SM = 1024          # ~16 waves of 64 resident warps
+ROWDOT_MAX_N = 16
+ROWDOT_CMAX = COLSUM_CMAX           # csrc/modmatmul.cu rowdot_kernel instances
+ROWDOT_MAX_CHUNK = 32 * NO_REDUCE_TERMS   # a lane sums chunk / 32 products
+SPLITK_MAX_M = 128
+SPLITK_SUB = NO_REDUCE58_TERMS      # rows of K a pass: one reduce_p58
+SPLITK_MAX_KC = NO_REDUCE_TERMS
+SPLITK_THREADS = 256
+SPLITK_BN = (32, 64, 128, 256)      # columns of B a CTA owns
+SPLITK_CTAS_PER_SM = 2
 
 GRAD_THREADS = 512
 GRAD_WARPS = GRAD_THREADS // 32
@@ -91,20 +103,32 @@ def reduce_p(x) -> np.ndarray:
 # ---------------------------------------------------------------- modmatmul
 
 def gemm_path(m: int, k: int, b_col_stride: int, n: int = 2,
-              a_m_stride: int | None = None) -> str:
-    """The csrc/modmatmul.cu kernel of a (m, k) @ (k, n) GEMM:
+              a_m_stride: int | None = None,
+              a_k_stride: int | None = None) -> str:
+    """The csrc/modmatmul.cu kernel of a (m, k) @ (k, n) GEMM, the first
+    of these that takes it:
 
     "thin"    thin_kernel (A staged whole, columns of B in registers) when
               M <= 64, 1 <= K <= 64 and B's columns are unit stride;
     "colsum"  colsum_kernel (a split-K column sum of A's rows) when A's
               M-stride is 1 and N <= 16: X^T y, whose A is the transposed
               view of the shares;
+    "rowdot"  rowdot_kernel (a GEMV a row of A, B staged in shared memory)
+              when A's K-stride is 1 and N <= 16: the MPC baseline's
+              Z = X W;
+    "splitk"  splitk_kernel (K cut over CTAs, partials combined) when
+              M <= 128, K > 64 and B's columns are unit stride: serving's
+              (B, d) @ (d, N C') scores;
     "tiled"   the BM x BN tile kernel (any strides) for the rest."""
     unit = b_col_stride == 1 or n == 1
     if m <= THIN_MAX_M and 1 <= k <= THIN_MAX_K and unit:
         return "thin"
     if a_m_stride == 1 and 1 <= n <= COLSUM_MAX_N:
         return "colsum"
+    if a_k_stride == 1 and 1 <= n <= ROWDOT_MAX_N:
+        return "rowdot"
+    if m <= SPLITK_MAX_M and k > THIN_MAX_K and unit:
+        return "splitk"
     return "tiled"
 
 
@@ -157,8 +181,95 @@ def colsum_launch(m: int, n: int, k: int, batch: int, sms: int) -> dict:
                 ctas=-(-(per_split * splits) // COLSUM_WARPS))
 
 
+@functools.lru_cache(maxsize=None)
+def rowdot_shape(n: int, k: int) -> dict:
+    """rowdot_kernel's instance and shared memory for N columns of B and
+    K: cmax (the first of ROWDOT_CMAX with N <= CMAX), kch (the rows of K
+    whose B it stages at once, class-major: all of K when 4 cmax K bytes
+    fit a block's shared memory; a lane then sums at most kch / 32
+    products, <= NO_REDUCE_TERMS) and smem (4 cmax kch bytes)."""
+    if not 1 <= n <= ROWDOT_MAX_N or k < 1:
+        raise ValueError(f"rowdot GEMM takes 1 <= N <= {ROWDOT_MAX_N}, "
+                         f"K >= 1; got N={n}, K={k}")
+    cmax = next(c for c in ROWDOT_CMAX if n <= c)
+    kch = min(k, SMEM_MAX // (4 * cmax), ROWDOT_MAX_CHUNK)
+    return dict(cmax=cmax, kch=kch, smem=4 * cmax * kch)
+
+
+@functools.lru_cache(maxsize=None)
+def rowdot_launch(m: int, n: int, k: int, batch: int, slots: int) -> dict:
+    """How csrc/modmatmul.cu's rowdot_kernel runs a (batch, m, k) @
+    (batch, k, n) GEMM when `slots` of its CTAs fit the card at once
+    (SMs x CTAs an SM, from the kernel's occupancy at rowdot_shape's
+    shared memory): rowdot_shape's cmax, kch and smem, and
+
+    run   rows of one batch a CTA walks (its strip): the `slots` CTAs are
+          dealt evenly over the batches and a strip never crosses one, so
+          each CTA stages B[b] once a chunk of K;
+    cpb   CTAs a batch (gridDim.x; the batch is gridDim.y)."""
+    if m < 1 or batch < 1 or slots < 1:
+        raise ValueError(f"rowdot GEMM takes M, batch, slots >= 1; got "
+                         f"M={m}, batch={batch}, slots={slots}")
+    cpb = min(m, max(1, slots // batch))
+    run = -(-m // cpb)
+    return dict(rowdot_shape(n, k), run=run, cpb=-(-m // run))
+
+
+@functools.lru_cache(maxsize=None)
+def splitk_launch(m: int, n: int, k: int, batch: int, sms: int) -> dict:
+    """How csrc/modmatmul.cu's splitk_kernel runs a (batch, m, k) @ (batch,
+    k, n) GEMM on a card of `sms` SMs:
+
+    bn      columns of B a CTA owns (the first of SPLITK_BN that holds N,
+            at most 256), a thread one column;
+    rg      row groups: threads bn * rg <= SPLITK_THREADS, each group
+            walks every rg-th output row;
+    gx      column blocks, ceil(N / bn);
+    kc      rows of K a split (a multiple of SPLITK_SUB, at most
+            SPLITK_MAX_KC), walked SPLITK_SUB rows a pass;
+    splits  ceil(K / kc): enough CTAs for ~SPLITK_CTAS_PER_SM an SM, at
+            most one a SPLITK_SUB-row block of K.  Each split writes its
+            (batch, M, N) partials < p; colsum_combine sums them."""
+    if not 1 <= m <= SPLITK_MAX_M or k < 1 or n < 1 or batch < 1:
+        raise ValueError(f"split-K GEMM takes 1 <= M <= {SPLITK_MAX_M}, K, "
+                         f"N, batch >= 1; got M={m}, K={k}, N={n}, "
+                         f"batch={batch}")
+    bn = next((c for c in SPLITK_BN if n <= c), SPLITK_BN[-1])
+    rg = min(SPLITK_THREADS // bn, m)
+    gx = -(-n // bn)
+    blocks = -(-k // SPLITK_SUB)
+    want = -(-(SPLITK_CTAS_PER_SM * sms) // (gx * batch))
+    splits = min(blocks, max(want, -(-k // SPLITK_MAX_KC)))
+    kc = -(-blocks // splits) * SPLITK_SUB
+    return dict(bn=bn, rg=rg, gx=gx, kc=kc, splits=-(-k // kc))
+
+
+def rowdot_model(a, b, kch: int) -> tuple:
+    """numpy model of rowdot_kernel: a (batch, m, k), b (batch, k, n) field
+    values.  In each chunk of kch rows of K, lane l of a row's warp sums
+    the products of columns l, l + 32, ... of the chunk (at most
+    ceil(kch / 32)) in uint64 and reduces once with reduce_p; the 32 lanes'
+    values (< p each) sum below 2^31 and reduce; a chunk past the first
+    adds its result mod p.  Returns (the product mod p, the largest lane
+    sum as a Python int)."""
+    a = np.asarray(a, dtype=np.uint64)
+    b = np.asarray(b, dtype=np.uint64)
+    k = a.shape[2]
+    out, top = np.zeros(a.shape[:2] + b.shape[2:], np.uint64), 0
+    for k0 in range(0, k, kch):
+        warp = np.zeros_like(out)
+        for lane in range(32):
+            cols = np.arange(k0 + lane, min(k, k0 + kch), 32)
+            sums = a[:, :, cols] @ b[:, cols]              # exact below 2^64
+            top = max(top, int(sums.max(initial=0)))
+            warp += reduce_p(sums)
+        out = reduce_p(out + reduce_p(warp))
+    return out, top
+
+
 def colsum_model(a, b, kc: int) -> tuple:
-    """numpy model of colsum_kernel and colsum_combine: a (batch, m, k),
+    """numpy model of colsum_kernel and colsum_combine (and of splitk_kernel
+    at kc = SPLITK_SUB, one pass a split): a (batch, m, k),
     b (batch, k, n) field values.  Each split of kc rows gives every
     (batch, column, class) a lane's uint64 sum of at most kc products,
     reduced once with reduce_p; the combine sums the splits' partials

@@ -116,7 +116,9 @@ def encode_model(key, result, cfg, objective, device=None) -> CodedModel:
         shares = shamir.share(key, wq, t, n, points)
         from_shares = False
     w_stack = shares.reshape(n, d, cols)
-    w_cols = w_stack.movedim(0, 1).reshape(d, n * cols)
+    # row-major (a view with column stride d at C' = 1 otherwise), so the
+    # scoring GEMM reads B's columns coalesced on the split-K path
+    w_cols = w_stack.movedim(0, 1).reshape(d, n * cols).contiguous()
     encode_s = sync_clock(dev) - t0
     return CodedModel(w_stack=w_stack, w_cols=w_cols, n=n, t=t,
                       points=points, d=d, out_shape=out_shape,
@@ -140,7 +142,9 @@ def score_shares(model: CodedModel, xq: Public) -> Share:
     sharing commutes with the mod-p linear map xq @ (.)."""
     bsz = xq.shape[0]
     z = ops.modmatmul(xq, model.w_cols)                 # (B, N*C')
-    return z.view(bsz, model.n, model.n_cols).movedim(1, 0)
+    # client-major in memory, so open_logits' (1, T+1) @ (T+1, B C')
+    # reads unit-stride columns (the thin GEMM path)
+    return z.view(bsz, model.n, model.n_cols).movedim(1, 0).contiguous()
 
 
 def open_logits(z_shares: Share, model: CodedModel) -> Opened:

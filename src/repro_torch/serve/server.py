@@ -33,7 +33,7 @@ def check_kind(kind: str) -> None:
     if kind == "sharded":
         raise ValueError(
             "sharded serving is not ported yet (the multi-device engine, "
-            "ROADMAP Queue A item 10); serve with 'jit' or 'eager'")
+            "ROADMAP Queue A item 3); serve with 'jit' or 'eager'")
     if kind not in SERVE_KINDS:
         raise ValueError(f"engine kind {kind!r} cannot serve (supported: "
                          f"{SERVE_KINDS}); proc:N serving is future work")

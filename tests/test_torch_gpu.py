@@ -172,7 +172,8 @@ def test_modmatmul_thin_path_matches_plain(cuda, m, k):
     from repro_torch.kernels.plan import gemm_path
     rng = np.random.default_rng(m * 100 + k)
     a, b = _fld(rng, m, k), _fld(rng, k, 2053)
-    want = "thin" if m <= 64 and k <= 64 else "tiled"
+    want = "thin" if m <= 64 and k <= 64 else \
+        "splitk" if m <= 128 and k > 64 else "tiled"
     assert gemm_path(m, k, b.stride(1), 2053) == want
     _eq(mm.modmatmul(a.to(cuda), b.to(cuda)), ref.modmatmul(a, b))
 
@@ -296,3 +297,83 @@ def test_modmatmul_colsum_at_its_term_bound(cuda, b, m, k, n, kc, worst):
     out = torch.empty((b, m, n), dtype=torch.int32, device=cuda)
     want = ref.modmatmul_batched(flat.view(b, k, m).transpose(1, 2), y)
     _eq(mm.colsum(xt, yc, out, launch), want)
+
+
+def _gemm_operands(rng, b, m, k, n, offset=0, worst=False, bcast=False):
+    """A (b, m, k) K-contiguous, `offset` words into its buffer (one (m, k)
+    expanded over the batch with `bcast`), and B (b, k, n); x = y = p - 1
+    with `worst`.  Returns CPU tensors (A's buffer, A, B)."""
+    rows = 1 if bcast else b
+    flat = _fld(rng, offset + rows * m * k)
+    y = _fld(rng, b, k, n)
+    if worst:
+        flat.fill_(P - 1)
+        y.fill_(P - 1)
+    a = flat[offset:].view(rows, m, k)
+    return flat, (a.expand(b, m, k) if bcast else a), y
+
+
+def _a_on_card(flat, cuda, offset, b, m, k, bcast):
+    a = flat.to(cuda)[offset:].view(1 if bcast else b, m, k)
+    return a.expand(b, m, k) if bcast else a
+
+
+@pytest.mark.parametrize("b,m,k,n,offset,worst,bcast", [
+    (3, 1, 65, 1, 0, False, False),        # M = 1, K just past thin
+    (2, 31, 3073, 10, 1, False, False),    # A 4 bytes off a 16-byte line
+    (1, 3006, 4097, 16, 0, False, False),  # past one staged chunk of B
+    (2, 31, 9019, 1, 0, True, False),      # x = y = p - 1
+    (4, 31, 3073, 10, 0, False, True),     # batch stride 0
+    (1, 31, 9019, 10, 3, True, False),     # chunks, worst sums, offset
+    (2, 3, 60000, 1, 0, True, False)])     # two chunks at C = 1
+def test_modmatmul_rowdot_matches_plain(cuda, b, m, k, n, offset, worst,
+                                        bcast):
+    rng = np.random.default_rng(b * m + k + n)
+    flat, a, y = _gemm_operands(rng, b, m, k, n, offset, worst, bcast)
+    ac = _a_on_card(flat, cuda, offset, b, m, k, bcast)
+    assert mm.path_of(ac, y) == "rowdot"
+    _eq(mm.modmatmul_batched(ac, y.to(cuda)), ref.modmatmul_batched(a, y))
+
+
+@pytest.mark.parametrize("b,m,k,n,offset,worst,bcast,forced", [
+    (1, 1, 65, 50, 0, False, False, False),
+    (1, 31, 3073, 130, 1, False, False, False),   # A 4 bytes off
+    (2, 128, 4097, 500, 0, False, True, False),   # batch stride 0
+    (1, 1, 9019, 50, 0, True, False, False),      # x = y = p - 1
+    (1, 128, 3073, 50, 0, True, False, False),
+    (1, 31, 9019, 1, 0, False, False, True),      # N = 1 (row-dot's path)
+    (300, 2, 65, 50, 0, False, False, False),     # one split, no combine
+    (2, 5, 9019, 500, 0, True, False, False)])    # splits of 3 passes
+def test_modmatmul_splitk_matches_plain(cuda, b, m, k, n, offset, worst,
+                                        bcast, forced):
+    from repro_torch.kernels import plan
+    rng = np.random.default_rng(b * m + k + n + 1)
+    flat, a, y = _gemm_operands(rng, b, m, k, n, offset, worst, bcast)
+    ac = _a_on_card(flat, cuda, offset, b, m, k, bcast)
+    want = ref.modmatmul_batched(a, y)
+    if forced:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        out = torch.empty((b, m, n), dtype=torch.int32, device=cuda)
+        _eq(mm.splitk(ac, y.to(cuda), out,
+                      plan.splitk_launch(m, n, k, b, sms)), want)
+    else:
+        assert mm.path_of(ac, y) == "splitk"
+        _eq(mm.modmatmul_batched(ac, y.to(cuda)), want)
+
+
+def test_refused_launches_raise(cuda):
+    """A launch that breaks a kernel's bounds is refused by its C entry
+    (cudaErrorInvalidValue) and the wrapper raises: no fallback."""
+    rng = np.random.default_rng(5)
+    a, y = _fld(rng, 1, 4, 300).to(cuda), _fld(rng, 1, 300, 3).to(cuda)
+    out = torch.empty((1, 4, 3), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="rowdot"):       # kch > K
+        mm.rowdot(a, y, out, dict(cmax=4, kch=301, run=4, cpb=1,
+                                  smem=4 * 4 * 301))
+    with pytest.raises(RuntimeError, match="rowdot"):       # strips short
+        mm.rowdot(a, y, out, dict(cmax=4, kch=300, run=1, cpb=1,
+                                  smem=4 * 4 * 300))
+    with pytest.raises(RuntimeError, match="splitk"):       # splits short
+        mm.splitk(a, y, out, dict(bn=32, rg=4, gx=1, kc=64, splits=2))
+    with pytest.raises(RuntimeError, match="splitk"):       # kc past 4096
+        mm.splitk(a, y, out, dict(bn=32, rg=4, gx=1, kc=8192, splits=1))

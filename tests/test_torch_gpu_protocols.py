@@ -108,13 +108,13 @@ def test_serving_on_the_card_is_bit_exact(cuda, name, protocol):
 @pytest.mark.parametrize("b", [1, 32, 128])
 def test_serving_gemm_shapes_match_plain(cuda, b):
     """(B, 3073) @ (3073, 50), serving's packed GEMM at cifar10_case2's
-    width, on the tiled kernel."""
+    width, on the split-K kernel."""
     rng = np.random.default_rng(b)
     a = torch.from_numpy(rng.integers(0, field.P, (b, 3073), dtype=np.int64)
                          .astype(np.int32))
     w = torch.from_numpy(rng.integers(0, field.P, (3073, 50),
                                       dtype=np.int64).astype(np.int32))
-    assert mm.path_of(a[None], w[None]) == "tiled"
+    assert mm.path_of(a[None], w[None]) == "splitk"
     got = mm.modmatmul(a.to(cuda), w.to(cuda)).cpu()
     np.testing.assert_array_equal(got.numpy(), ref.modmatmul(a, w).numpy())
 
@@ -122,14 +122,14 @@ def test_serving_gemm_shapes_match_plain(cuda, b):
 @pytest.mark.parametrize("c", [1, 10])
 def test_baseline_z_gemm_matches_plain(cuda, c):
     """Z = X W of the MPC baseline: a K-contiguous (N_g, m/3, d) share
-    tensor times (N_g, d, C), on the tiled kernel (a cut of cifar10_case2's
+    tensor times (N_g, d, C), on the row-dot kernel (a cut of cifar10_case2's
     (16, 3006, 3073))."""
     rng = np.random.default_rng(c)
     x = torch.from_numpy(rng.integers(0, field.P, (4, 301, 3073),
                                       dtype=np.int64).astype(np.int32))
     w = torch.from_numpy(rng.integers(0, field.P, (4, 3073, c),
                                       dtype=np.int64).astype(np.int32))
-    assert mm.path_of(x, w) == "tiled"
+    assert mm.path_of(x, w) == "rowdot"
     got = mm.modmatmul_batched(x.to(cuda), w.to(cuda)).cpu()
     np.testing.assert_array_equal(got.numpy(),
                                   ref.modmatmul_batched(x, w).numpy())

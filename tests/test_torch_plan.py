@@ -100,10 +100,11 @@ def test_other_gemms_take_the_tiled_path():
     xt = torch.empty((N, 9019, D), dtype=torch.int32).transpose(1, 2)
     y = torch.empty((N, 9019, 1), dtype=torch.int32)
     assert plan.gemm_path(D, 9019, y.stride(2), 1, xt.stride(1)) == "colsum"
-    # A's K-stride 1 (a contiguous A), or N > 16: still tiled
-    assert plan.gemm_path(D, 9019, 1, 1, 9019) == "tiled"
+    # A's K-stride 1 (a contiguous A) takes the row-dot path; N > 16 with
+    # M > 128 stays tiled
+    assert plan.gemm_path(D, 9019, 1, 1, 9019, 1) == "rowdot"
     assert plan.gemm_path(D, 9019, 1, 17, 1) == "tiled"
-    assert plan.gemm_path(8, 65, 1, 100) == "tiled"              # K > 64
+    assert plan.gemm_path(8, 65, 1, 100) == "splitk"             # K > 64
     assert plan.gemm_path(65, 8, 1, 100) == "tiled"              # M > 64
     assert plan.gemm_path(8, 8, _b_stride(8, 100, True), 100) == "tiled"
     assert plan.gemm_path(8, 8, 7, 1) == "thin"     # one column: any stride
@@ -135,7 +136,7 @@ def test_x_t_y_takes_the_colsum_path(what, n, m, d, c):
     from repro_torch.kernels import modmatmul as mm
     xt, y = _xty(n, m, d, c)
     assert mm.path_of(xt, y) == "colsum", what
-    assert mm.path_of(xt.contiguous(), y) == "tiled", what    # K-stride 1
+    assert mm.path_of(xt.contiguous(), y) == "rowdot", what   # K-stride 1
 
 
 def _tasks(m, k, batch, launch):
@@ -452,3 +453,145 @@ def test_horner_lazy_matches_plain(degree):
                              torch.from_numpy(co.astype(np.int32)))
         np.testing.assert_array_equal(plan.horner_lazy(z, co), want.numpy())
 
+
+
+# ------------------------------------------- the row-dot and split-K paths
+
+def _contig(*shape):
+    return torch.empty(shape, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("what,ng,mg,d,c", [
+    ("mpc_baseline Z = X W, cifar10_case2", 16, 3006, D, 1),
+    ("the same at a 10-class objective", 16, 3006, D, 10),
+    ("mpc_baseline Z = X W, cifar10_like", 5, 160, 96, 1),
+    ("mpc_baseline Z = X W, mnist10_like", 4, 130, 24, 10)])
+def test_baseline_z_takes_the_rowdot_path(what, ng, mg, d, c):
+    from repro_torch.kernels import modmatmul as mm
+    assert mm.path_of(_contig(ng, mg, d), _contig(ng, d, c)) == "rowdot", what
+    # a batch stride of 0 (an expanded A) keeps the path
+    assert mm.path_of(_contig(mg, d)[None].expand(ng, mg, d),
+                      _contig(ng, d, c)) == "rowdot"
+
+
+@pytest.mark.parametrize("b", [1, 32, 128])
+def test_serving_scores_take_the_splitk_path(b):
+    from repro_torch.kernels import modmatmul as mm
+    a, w = _contig(b, D), _contig(D, N)
+    assert mm.path_of(a[None], w[None]) == "splitk"
+    assert plan.gemm_path(b, D, w.stride(1), N, a.stride(0),
+                          a.stride(1)) == "splitk"
+
+
+@pytest.mark.parametrize("m,k,n,a_st,b_col,want", [
+    (3073, 9019, 1, (9019, 1), 1, "rowdot"),      # contiguous A, N <= 16
+    (3073, 9019, 17, (1, 3073), 1, "tiled"),      # N > 16, M > 128
+    (8, 65, 100, (65, 1), 1, "splitk"),           # K > 64, M <= 128
+    (65, 8, 100, (8, 1), 1, "tiled"),             # M > 64, K <= 64
+    (8, 8, 100, (8, 1), 8, "tiled"),              # strided B
+    (129, 65, 100, (65, 1), 1, "tiled"),          # M past the split-K path
+    (128, 65, 100, (65, 1), 1, "splitk"),
+    (128, 65, 100, (65, 1), 65, "tiled"),         # ... with a strided B
+    (200, 40, 16, (1, 200), 1, "colsum"),         # M-stride 1 first
+    (200, 40, 16, (40, 1), 1, "rowdot"),
+    (50, 17, 3073, (17, 1), 1, "thin")])
+def test_gemm_path_order(m, k, n, a_st, b_col, want):
+    assert plan.gemm_path(m, k, b_col, n, *a_st) == want
+
+
+@pytest.mark.parametrize("m,n,k,batch,slots", [
+    (3006, 1, D, 16, 264), (3006, 10, D, 16, 132), (3006, 16, D, 16, 132),
+    (31, 1, 65, 3, 264), (1, 10, 4097, 1, 132), (3006, 2, 9019, 1, 264),
+    (7, 1, 200000, 2, 132), (100, 3, 50, 300, 264), (24, 10, 96, 4, 264)])
+def test_rowdot_launch_covers_m_and_k(m, n, k, batch, slots):
+    launch = plan.rowdot_launch(m, n, k, batch, slots)
+    kch, run, cpb = launch["kch"], launch["run"], launch["cpb"]
+    assert launch["cmax"] == next(c for c in plan.ROWDOT_CMAX if n <= c)
+    assert 1 <= kch <= k and -(-kch // 32) <= plan.NO_REDUCE_TERMS
+    assert launch["smem"] == 4 * launch["cmax"] * kch <= plan.SMEM_MAX
+    # csrc/modmatmul.cu repro_modmatmul_rowdot's checks of the strips
+    assert run * cpb >= m > run * (cpb - 1)
+    assert cpb * batch <= max(slots, batch)       # one wave when it can
+    if k * launch["cmax"] * 4 <= plan.SMEM_MAX:
+        assert kch == k                           # B staged once a CTA
+
+
+def test_rowdot_launch_at_the_baselines_z():
+    """Z = X W at cifar10_case2: B staged whole (12 KB at C' = 1, 123 KB at
+    10), the resident CTAs dealt evenly over the 16 groups."""
+    assert plan.rowdot_launch(3006, 1, D, 16, 264) == dict(
+        cmax=1, kch=D, smem=4 * D, run=188, cpb=16)
+    assert plan.rowdot_launch(3006, 10, D, 16, 132) == dict(
+        cmax=10, kch=D, smem=40 * D, run=376, cpb=8)
+    for n, k in ((17, 100), (0, 100), (1, 0)):
+        with pytest.raises(ValueError):
+            plan.rowdot_shape(n, k)
+
+
+@pytest.mark.parametrize("m,n,k,batch", [
+    (1, 50, D, 1), (32, 50, D, 1), (128, 50, D, 1), (31, 130, 4097, 2),
+    (3006 // 30, 500, 9019, 1), (1, 1, 65, 1), (128, 1000, 65, 3),
+    (64, 7, 300000, 1), (5, 13, 96, 4)])
+def test_splitk_launch_covers_n_and_k(m, n, k, batch):
+    launch = plan.splitk_launch(m, n, k, batch, 132)
+    bn, rg, gx = launch["bn"], launch["rg"], launch["gx"]
+    kc, splits = launch["kc"], launch["splits"]
+    assert bn in plan.SPLITK_BN and bn * rg <= plan.SPLITK_THREADS
+    assert 1 <= rg <= m
+    assert gx * bn >= n > (gx - 1) * bn
+    assert kc % plan.SPLITK_SUB == 0 and kc <= plan.SPLITK_MAX_KC
+    assert splits * kc >= k > (splits - 1) * kc
+
+
+def test_splitk_launch_at_serving():
+    """Serving's (B, 3073) @ (3073, 50): 49 splits of 64 rows, one CTA
+    each."""
+    for b, rg in ((1, 1), (32, 4), (128, 4)):
+        assert plan.splitk_launch(b, N, D, 1, 132) == dict(
+            bn=64, rg=rg, gx=1, kc=64, splits=49)
+    for m, n, k in ((129, 10, 100), (0, 10, 100), (1, 0, 100), (1, 1, 0)):
+        with pytest.raises(ValueError):
+            plan.splitk_launch(m, n, k, 1, 132)
+
+
+@pytest.mark.parametrize("b,m,k,n,kch", [
+    (2, 5, D, 1, None), (1, 3, D, 10, None), (3, 4, 65, 16, None),
+    (1, 2, 4097, 2, None), (2, 3, 1000, 10, 300), (1, 1, 31, 1, None)])
+def test_rowdot_model_matches_plain(b, m, k, n, kch):
+    rng = np.random.default_rng(b * m + k + n)
+    a = rng.integers(0, P, size=(b, m, k), dtype=np.int64).astype(np.int32)
+    y = rng.integers(0, P, size=(b, k, n), dtype=np.int64).astype(np.int32)
+    kch = kch or plan.rowdot_shape(n, k)["kch"]
+    want = ref.modmatmul_batched(torch.from_numpy(a), torch.from_numpy(y))
+    np.testing.assert_array_equal(plan.rowdot_model(a, y, kch)[0],
+                                  want.numpy())
+
+
+@pytest.mark.parametrize("k,n", [(plan.ROWDOT_MAX_CHUNK // 4, 1),
+                                 (plan.SMEM_MAX // 4 + 100, 1), (D, 16)])
+def test_rowdot_model_at_p_minus_1(k, n):
+    """x = y = p - 1 at the largest chunk rowdot_shape gives (and one past
+    it: two chunks, the second added into the first): every lane sum
+    stays below 2^64 and the model equals the plain product."""
+    kch = plan.rowdot_shape(n, k)["kch"]
+    a = np.full((1, 2, k), P - 1, np.int32)
+    y = np.full((1, k, n), P - 1, np.int32)
+    got, top = plan.rowdot_model(a, y, kch)
+    assert top == -(-kch // 32) * (P - 1) ** 2 < 1 << 64
+    want = ref.modmatmul_batched(torch.from_numpy(a), torch.from_numpy(y))
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("b,k", [(1, D), (128, D), (3, 9019)])
+def test_colsum_model_at_the_splitk_kc(b, k):
+    """The split-K kernel's arithmetic at the kc splitk_launch picks (64 at
+    serving: one reduce_p58 a pass) with x = y = p - 1: lane sums stay
+    below 2^58 and the combine equals the plain product."""
+    kc = plan.splitk_launch(b, 5, k, 1, 132)["kc"]
+    assert kc == plan.SPLITK_SUB
+    a = np.full((1, b, k), P - 1, np.int32)
+    y = np.full((1, k, 5), P - 1, np.int32)
+    got, top = plan.colsum_model(a, y, kc)
+    assert top == kc * (P - 1) ** 2 < 1 << 58
+    want = ref.modmatmul_batched(torch.from_numpy(a), torch.from_numpy(y))
+    np.testing.assert_array_equal(got, want.numpy())

@@ -242,7 +242,7 @@ def test_protocol_registry_and_validation():
         api.fit("smoke", "quantum", "jit", device="cpu")
     with pytest.raises(ValueError, match="supports engines"):
         api.fit("smoke", "float", "sharded", device="cpu")
-    for engine, item in (("sharded:4", "item 10"), ("proc:2", "item 11")):
+    for engine, item in (("sharded:4", "item 3"), ("proc:2", "item 2")):
         with pytest.raises(ValueError, match=item):
             api.fit("smoke", "copml", engine, device="cpu")
     with pytest.raises(ValueError, match="straggler-subset"):

@@ -178,7 +178,7 @@ def test_serve_queue_path_matches_direct_predict(smoke_result, mnist_result):
 def test_serve_argument_checks(smoke_result, mnist_result):
     with pytest.raises(ValueError, match="future work"):
         api.serve("smoke", smoke_result, "proc:4", device="cpu")
-    with pytest.raises(ValueError, match="item 10"):
+    with pytest.raises(ValueError, match="item 3"):
         api.serve("smoke", smoke_result, "sharded:1", device="cpu")
     with pytest.raises(ValueError, match="shape"):
         api.serve("mnist10_like", smoke_result, device="cpu")
