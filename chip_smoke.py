@@ -34,7 +34,12 @@ Phases (a failed phase fails the run; no failure is caught):
               other protocols' full shapes: the MPC baseline's Z = X W
               (16, 3006, 3073) @ (16, 3073, C), C = 1 and 10, on the row-dot
               kernel, and serving's (B, 3073) @ (3073, 50), B = 1, 32, 128,
-              on the split-K kernel (--quick: cuts of both)
+              on the split-K kernel (--quick: cuts of both); then the
+              shapes a proc:4 worker gives the kernels: coded_gradient_batched
+              (13, 902, 3073) with the last rank's 2 zero-padded clients,
+              coded_gradient_matrix (4, 98, 24, 10) with 3, and every field
+              GEMM of a worker's step at its strides (worker.step_gemms),
+              each on the thin kernel
   3. golden   api.fit on cuda reproduces the smoke goldens (weights, share
               and history sha256) and the pinned mnist10_like /
               linreg_smoke / cifar10_like / smoke_straggler shas of the JAX
@@ -81,10 +86,26 @@ Phases (a failed phase fails the run; no failure is caught):
               window; the windows' GEMMs by shape and path (scores on the
               split-K kernel, opens on the thin one, none on the tiled
               kernel); the float result (fallback encode) at batch 128
+  9. proc     api.fit(FULL_WORKLOAD, "copml", "proc:4", iters=5): four
+              worker processes over localhost sockets, each with its own
+              CUDA context on the card, bit-equal to phase 4's jit fit
+              (weights, shares, history); frames by phase equal to
+              cost_model.proc_net_frames; every worker on cuda, its
+              coded_gradient_batched once a step, no GEMM on the tiled
+              kernel; setup, wall, ms/iter, MB and seconds by phase and the
+              coordinator's peak memory, beside cost_model's modelled
+              communication; then smoke_straggler with rank 3's links 0.35 s
+              slow (degraded steps, bit-equal to jit), mnist10_like proc:4
+              (coded_gradient_matrix in the workers, bit-equal to jit), and
+              the CLI: `python -m repro_torch.api.cli smoke --iters 10` and
+              its `serve` (serve_main) as subprocesses, and in-process, where
+              the fit lands on GOLDEN_W
 
 Output: one {"kernels": [...]} JSON line (the seven TPU kernels' ports,
 then the row-dot and split-K paths of modmatmul as entries of their own,
-each with its launches on the full-width path that runs it), the card's
+each with its launches on the full-width path that runs it, its launches
+by path -- the proc:4 runs' summed over the coordinator and the workers --
+and its time at a proc worker's shape where it runs there), the card's
 name and power limit (nvidia-smi), then {"ok": true, "device": {...}} as
 the last line.
 Details (per-shape timings, poly_eval's device time at L = 45,100 and 2^26,
@@ -177,6 +198,11 @@ PROTOCOL_PATHS = {"mpc_baseline": ("modmatmul", "modmatmul_batched"),
 SERVE_PATH = ("modmatmul",)
 SERVE_BATCHES = (1, 32, 128)
 SERVE_QUERIES = 1024
+PROC_N = 4
+PROC_ENGINE = f"proc:{PROC_N}"
+# rank 3's frames arrive 0.35 s late everywhere; the others decode after
+# 0.05 s without its blocks
+STRAGGLER_NET = dict(links=((3, None, 0.35),), decode_timeout_s=0.05)
 
 TPU_KERNEL = {
     "modmatmul": "src/repro/kernels/modmatmul.py:70",
@@ -1164,6 +1190,75 @@ def phase_kernels_protocols(ck: Checker, quick: bool) -> dict:
     return rows
 
 
+def phase_kernels_proc(ck: Checker, quick: bool) -> dict:
+    """The kernels at the shapes a proc:4 worker gives them (one rank's
+    n_loc = 13 clients of cifar10_case2, the last rank's 2 of them zero
+    rows; one rank's 4 clients of mnist10_like, 3 of them zero rows):
+    coded_gradient_batched (13, 902, 3073), coded_gradient_matrix (4, 98,
+    24, 10), and every field GEMM of a worker's step with the strides the
+    worker passes (worker.step_gemms), each against its plain version (CPU
+    copies, exact) and timed by device time with its bound.  Returns the
+    kernels line's "proc worker" shapes by kernel."""
+    torch = ck.torch
+    from repro_torch.kernels import coded_gradient as cg
+    from repro_torch.kernels import modmatmul as mm
+    from repro_torch.kernels import ref
+    from repro_torch.launch.runtime import worker
+    if quick:
+        return {}
+    rows = {}
+    for name, (n, m, d, c, real) in {
+            "coded_gradient_batched": (13, 902, 3073, 1, 11),
+            "coded_gradient_matrix": (4, 98, 24, 10, 1)}.items():
+        x, w, co = ck.field(n, m, d), ck.field(n, d, c), ck.field(2)
+        x[real:] = 0                      # the zero-padded clients
+        w[real:] = 0
+        args = (x, w[..., 0], co) if c == 1 else (x, w, co)
+        fn = (lambda f, a: lambda: f(*a))(getattr(cg, name), args)
+        ck.compare(name, fn(), getattr(ref, name)(*[a.cpu() for a in args]),
+                   f"proc worker N={n} ({real} real) m={m} d={d} C={c}")
+        bb, by = bound(4.0 * (n * m * d + 2 * n * d * c + 2),
+                       4.0 * n * m * d * c)
+        rec = dict(shape=f"N={n} ({real} real) m={m} d={d} C={c}",
+                   ms=ck.time_ms(fn, 20), device_ms=device_ms(torch, fn, 20),
+                   plain_ms=ck.time_ms(
+                       lambda: getattr(ref, name)(*args), 2),
+                   bound_ms=bb, bound_by=by, plan=grad_label(n, m, d, c))
+        ck.rows.append(dict(kernel=name, what="proc:4 worker step", **rec))
+        rows[name] = rec
+        del x, w, co, args, fn
+    gemms = worker.step_gemms(50, 10, 7, 3073, 4, 49)
+    for (name, ash, ast, bsh, bst), count in sorted(gemms.items()):
+        a, abase = strided_field(ck, ash, ast)
+        b, bbase = strided_field(ck, bsh, bst)
+        path = mm.path_of(*((a[None], b[None]) if name == "modmatmul"
+                            else (a, b)))
+        assert path == "thin", (name, ash, bsh, path)
+        fn = (lambda f, a_, b_: lambda: f(a_, b_))(getattr(mm, name), a, b)
+        out = fn()
+        ck.compare(name, out[..., :2048],
+                   getattr(ref, name)(a.cpu(), b[..., :2048].cpu()),
+                   f"proc worker {path} {ash}@{bsh} strides {ast} {bst}")
+        bsz, (m_, k_), n_ = ((1, ash, bsh[1]) if name == "modmatmul"
+                             else (ash[0], ash[1:], bsh[2]))
+        bb, by = bound(4.0 * (min(a.numel(), abase.numel())
+                              + min(b.numel(), bbase.numel()) + out.numel()),
+                       2.0 * bsz * m_ * k_ * n_)
+        rec = dict(shape=f"{ash}@{bsh} strides {ast} {bst}", path=path,
+                   launches_per_step=count, ms=ck.time_ms(fn, 30),
+                   device_ms=device_ms(torch, fn, 30),
+                   plain_ms=ck.time_ms(
+                       lambda: getattr(ref, name)(a, b), 2),
+                   bound_ms=bb, bound_by=by)
+        ck.rows.append(dict(kernel=name, what="proc:4 worker step", **rec))
+        log(f"  proc worker {name:17s} {rec['shape']:60s} x{count}/step "
+            f"{rec['device_ms']} ms (bound {bb:.4f})")
+        del a, b, abase, bbase, out, fn
+    torch.cuda.empty_cache()
+    log(f"kernels: the proc:4 workers' shapes passed {dict(ck.checks)}")
+    return rows
+
+
 def phase_golden_protocols(np) -> None:
     """The pinned MPC baseline (bh08, bgw) and aggregation-round shas on
     the card, and smoke serving bit-exact against reference_scores."""
@@ -1384,6 +1479,169 @@ def phase_serve(ck: Checker, np, copml_res, float_res) -> tuple:
         "opened model, bit for bit, on the card")
     return out, dict(counts)
 
+
+
+def proc_counts(coord: dict, mc: dict) -> dict:
+    """Launches of a proc run, run_counts' keys: the coordinator's (its
+    setup and openings) plus every worker's."""
+    total = dict(coord)
+    for rec in mc["workers"]:
+        for name, c in rec["launches"].items():
+            total[name] += c
+        for path, c in rec["gemm_paths"].items():
+            total[f"gemm:{path}"] += c
+    return total
+
+
+def proc_workers_ok(mc: dict, iters: int, kernel: str) -> None:
+    """Every worker ran on the card, launched `kernel` (its coded
+    gradient) once a step and fused_step never, and took no GEMM down the
+    tiled path; its GEMMs by path add up to its GEMMs by shape."""
+    for rank, rec in enumerate(mc["workers"]):
+        assert rec["device"].startswith("cuda"), (rank, rec["device"])
+        assert rec["launches"][kernel] == iters, (rank, rec["launches"])
+        assert rec["launches"]["fused_step"] == 0, (rank, rec["launches"])
+        assert rec["gemm_paths"]["tiled"] == 0, (rank, rec["gemm_paths"])
+        assert sum(rec["gemm_paths"].values()) == \
+            sum(g[5] for g in rec["gemms"]), (rank, rec)
+
+
+def fit_proc(ck: Checker, workload, engine, iters: int, **kw) -> tuple:
+    """api.fit(workload, "copml", engine) on the card with the launch
+    counts reset just before and read just after (the coordinator's plus
+    every worker's); returns (result, counts, coordinator peak bytes above
+    what was held when it started)."""
+    torch = ck.torch
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    res = api.fit(workload, "copml", engine, key=0, iters=iters,
+                  device="cuda", **kw)
+    counts = proc_counts(run_counts(), res.measured_comm)
+    return res, counts, torch.cuda.max_memory_allocated() - held
+
+
+def modelled_comm(wl, iters: int) -> dict:
+    """cost_model.copml_costs' per-client communication for the run, and
+    the bytes it implies for all N clients at 4 bytes an element (the
+    WAN model: the dataset's coded slices, then 2 d C N elements a step)."""
+    from repro_torch.core import cost_model
+    cw = cost_model.Workload(m=wl.m, d=wl.d, n=wl.n_clients, k=wl.cfg.k,
+                             t=wl.cfg.t, iters=iters, r=wl.cfg.r,
+                             c=wl.objective.n_outputs)
+    setup = wl.m * wl.d * wl.n_clients / wl.cfg.k
+    per_step = 2 * wl.d * wl.objective.n_outputs * wl.n_clients
+    return dict(comm_s=cost_model.copml_costs(cw)["comm_s"],
+                setup_mb=4 * setup * wl.n_clients / 1e6,
+                per_step_mb=4 * per_step * wl.n_clients / 1e6)
+
+
+def phase_proc(ck: Checker, np, fused) -> tuple:
+    """The proc:4 engine on the card: FULL_WORKLOAD at full width, bit-equal
+    to phase 4's jit fit (same key), with the choreography's frames and
+    every worker's launches; a slow-link straggler on smoke_straggler and
+    mnist10_like (the matrix kernel in the workers), both bit-equal to
+    jit; then the CLI as subprocesses on the card (a fit and serve_main)
+    and in-process (its fit lands on GOLDEN_W).  Returns (summary,
+    {run: counts})."""
+    from repro_torch import api
+    from repro_torch.api import cli
+    from repro_torch.core import cost_model
+    wl = api.get_workload(FULL_WORKLOAD)
+    wl.client_data()                       # dataset build is set-up
+    res, counts, peak = fit_proc(ck, wl, PROC_ENGINE, FULL_ITERS)
+    same_model(np, res, fused, f"{PROC_ENGINE} vs jit full-width run")
+    assert sha(res.state.w_shares.cpu().numpy(), np.int32) == \
+        sha(fused.state.w_shares.cpu().numpy(), np.int32), "proc shares"
+    mc = res.measured_comm
+    assert mc["frames_by_phase"] == cost_model.proc_net_frames(
+        PROC_N, FULL_ITERS, history=True), mc["frames_by_phase"]
+    assert mc["degraded_steps"] == 0 and mc["dropped_frames"] == {}, mc
+    proc_workers_ok(mc, FULL_ITERS, "coded_gradient_batched")
+    for name in ("modmatmul", "modmatmul_batched", "coded_gradient_batched"):
+        assert counts[name] > 0, f"{name} was not launched on the proc path"
+    model = modelled_comm(wl, FULL_ITERS)
+    summary = dict(run_summary(res, counts, peak),
+                   measured={k: v for k, v in mc.items() if k != "workers"},
+                   workers=mc["workers"], modelled=model)
+    mb = {k: v / 1e6 for k, v in mc["bytes_by_phase"].items()}
+    log(f"proc: {wl.name} {PROC_ENGINE} setup_wall_s "
+        f"{mc['setup_wall_s']:.3f}, wall_s {mc['wall_s']:.3f}, "
+        f"{summary['ms_per_iter']:.3f} ms/iter, coordinator peak "
+        f"{summary['peak_gib']:.2f} GiB; measured MB by phase "
+        + ", ".join(f"{k} {v:.3f}" for k, v in mb.items())
+        + f" (total {mc['total_bytes'] / 1e6:.3f}); s by phase "
+        + ", ".join(f"{k} {v:.4f}" for k, v in mc["seconds_by_phase"].items())
+        + f"; frames {mc['frames_by_phase']}; modelled (cost_model, WAN, "
+        f"4 B an element, all N clients): setup {model['setup_mb']:.1f} MB, "
+        f"{model['per_step_mb']:.3f} MB a step, comm "
+        f"{model['comm_s']:.1f} s a client; accuracy "
+        f"{res.final_accuracy:.4f} (equal to jit's); launches {counts}")
+    log("proc: workers " + "; ".join(
+        f"rank {r} {w['device']} wall {w['wall_s']:.3f} s launches "
+        f"{ {k: v for k, v in w['launches'].items() if v} } paths "
+        f"{ {k: v for k, v in w['gemm_paths'].items() if v} }"
+        for r, w in enumerate(mc["workers"])))
+    res.state = None
+    runs = {f"{PROC_ENGINE} {wl.name}": counts}
+
+    ref = api.fit("smoke_straggler", "copml", "jit", key=0, subset="all",
+                  history=False, device="cuda")
+    slow = api.EngineSpec("proc", devices=PROC_N,
+                          net=api.NetConfig(**STRAGGLER_NET))
+    sres, _, _ = fit_proc(ck, "smoke_straggler", slow, ref.iters,
+                          subset="all", history=False)
+    smc = sres.measured_comm
+    assert smc["degraded_steps"] >= 1, smc
+    assert smc["frames_by_phase"] == cost_model.proc_net_frames(
+        PROC_N, ref.iters, history=False)
+    np.testing.assert_array_equal(sres.weights, ref.weights)
+    np.testing.assert_array_equal(sres.state.w_shares.cpu().numpy(),
+                                  ref.state.w_shares.cpu().numpy())
+    proc_workers_ok(smc, ref.iters, "coded_gradient_batched")
+    summary["straggler"] = {k: v for k, v in smc.items() if k != "workers"}
+    log(f"proc: smoke_straggler with rank 3's links 0.35 s slow: "
+        f"{smc['degraded_steps']} degraded steps of {ref.iters}, dropped "
+        f"{smc['dropped_frames']}, weights and shares equal to jit's, "
+        f"wall {smc['wall_s']:.3f} s")
+
+    mref = api.fit("mnist10_like", "copml", "jit", key=0, iters=3,
+                   history=False, device="cuda")
+    mres, mcounts, _ = fit_proc(ck, "mnist10_like", PROC_ENGINE, 3,
+                                history=False)
+    np.testing.assert_array_equal(mres.weights, mref.weights)
+    np.testing.assert_array_equal(mres.state.w_shares.cpu().numpy(),
+                                  mref.state.w_shares.cpu().numpy())
+    proc_workers_ok(mres.measured_comm, 3, "coded_gradient_matrix")
+    runs[f"{PROC_ENGINE} mnist10_like"] = mcounts
+    log(f"proc: mnist10_like {PROC_ENGINE} bit-equal to jit, launches "
+        f"{mcounts}")
+
+    got = []
+    real_fit = cli.fit
+    cli.fit = lambda *a, **k: got.append(real_fit(*a, **k)) or got[-1]
+    try:
+        cli.main(["smoke", "--iters", "10"])
+    finally:
+        cli.fit = real_fit
+    np.testing.assert_array_equal(np.asarray(got[0].weights, np.float64),
+                                  np.asarray(GOLDEN_W))
+    assert got[0].device.startswith("cuda")
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    for args in (["smoke", "--iters", "10"],
+                 ["serve", "smoke", "--iters", "10"]):
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.api.cli", *args], cwd=REPO,
+            env=env, capture_output=True, text=True, timeout=300,
+            check=True).stdout
+        for line in out.splitlines():
+            log(f"proc: cli {' '.join(args)}: {line}")
+        assert "on cuda" in out.splitlines()[0], out
+        summary.setdefault("cli", {})[" ".join(args)] = out
+    return summary, runs
 
 
 def set_schedule(mode: str) -> None:
@@ -1724,6 +1982,7 @@ def main() -> int:
     rows = phase_kernels(ck, args.quick)
     rows.update(phase_kernels_siloed(ck, args.quick))
     rows.update(phase_kernels_protocols(ck, args.quick))
+    proc_rows = phase_kernels_proc(ck, args.quick)
     phase_golden(np)
     phase_golden_siloed(np)
     phase_golden_protocols(np)
@@ -1741,6 +2000,7 @@ def main() -> int:
             phase_protocols(ck, np, summary)
         report["serve"], report["serve_launches"] = phase_serve(
             ck, np, fused, float_res)
+        report["proc"], proc_runs = phase_proc(ck, np, fused)
         fused.state = None                 # frees its device memory
         for name in FUSED_PATH:
             counts[name] = fused_counts[name]
@@ -1766,11 +2026,17 @@ def main() -> int:
             path[name] = f"{run} cifar10_case2"
             by_path[name] = {f"{r} cifar10_case2": c.get(key, 0)
                              for r, c in runs.items()}
+        # the proc path: the coordinator's launches plus every worker's
+        for run, c in proc_runs.items():
+            for name in TPU_KERNEL:
+                gpath = PATH_ENTRIES.get(name, (None,))[0]
+                by_path[name][run] = c[f"gemm:{gpath}"] if gpath else c[name]
     report["shapes"] = ck.rows
 
     kernels = []
     for name in TPU_KERNEL:
         r = rows.get(name, {})
+        pr = proc_rows.get(name)
         kernels.append(dict(
             name=name, route="cuda", source=SOURCE[name],
             replaces=TPU_KERNEL[name], launches=counts[name],
@@ -1779,7 +2045,10 @@ def main() -> int:
             checks=ck.checks[name], shape=r.get("shape"), ms=r.get("ms"),
             device_ms=r.get("device_ms"),
             plain_ms=r.get("plain_ms"), bound_ms=r.get("bound_ms"),
-            bound_by=r.get("bound_by"), library_ms=None))
+            bound_by=r.get("bound_by"), library_ms=None,
+            proc_worker=None if pr is None else {
+                k: pr[k] for k in ("shape", "ms", "device_ms", "plain_ms",
+                                   "bound_ms", "bound_by")}))
     report["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

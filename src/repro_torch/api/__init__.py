@@ -7,6 +7,8 @@
     res = api.fit("smoke_straggler", iters=4, faults=plan)    # churn
     res = api.fit("smoke", "mpc_baseline", "jit", iters=5)    # or "float",
     #                                 "poly_float", "secure_agg"
+    res = api.fit("cifar10_case2", "copml", "proc:4", iters=5)
+    res.measured_comm              # wire bytes, frames, seconds by phase
     srv = api.serve("smoke", res, "jit")     # score from re-shared shares
     preds, stats = srv.serve(queries)
 
@@ -19,12 +21,14 @@ from ..core.objectives import (OBJECTIVES, SecureObjective,
 from ..core.objectives import get as get_objective
 from ..core.objectives import names as objective_names
 from ..core.objectives import register as register_objective
-from .engine import EAGER, JIT, PROC, SHARDED, EngineKind, EngineSpec
+from .engine import (EAGER, ENGINES, JIT, PROC, SHARDED, EngineKind,
+                     EngineSpec, NetConfig)
 from .engine import names as engine_names
 from .engine import parse as parse_engine
 from .engine import register_kind as register_engine_kind
 from .faults import FaultPlan, FaultPlanViolation
-from .protocols import ENGINES, PROTOCOLS, Protocol, fault_threshold, fit
+from .protocols import (PROTOCOLS, Protocol, fault_threshold, fit,
+                        run_copml_engine)
 from .protocols import names as protocol_names
 from .protocols import register as register_protocol
 from .result import TrainResult, accuracy_curve, accuracy_of
@@ -37,11 +41,11 @@ from .workloads import register as register_workload
 __all__ = [
     "EAGER", "ENGINES", "JIT", "OBJECTIVES", "PROC", "PROTOCOLS",
     "SERVE_ENGINES", "SHARDED", "EngineKind", "EngineSpec", "FaultPlan",
-    "FaultPlanViolation", "Protocol", "SecureObjective", "TrainResult",
-    "WORKLOADS", "Workload", "accuracy_curve", "accuracy_of",
+    "FaultPlanViolation", "NetConfig", "Protocol", "SecureObjective",
+    "TrainResult", "WORKLOADS", "Workload", "accuracy_curve", "accuracy_of",
     "engine_names", "fault_threshold", "fit", "get_objective",
     "get_workload", "multiclass_logistic", "objective_names",
     "parse_engine", "protocol_names", "register_engine_kind",
-    "register_objective", "register_protocol", "register_workload", "serve",
-    "workload_names",
+    "register_objective", "register_protocol", "register_workload",
+    "run_copml_engine", "serve", "workload_names",
 ]

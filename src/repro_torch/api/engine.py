@@ -8,19 +8,26 @@ computed:
   jit      the same loop in the port (no CUDA graph yet); in the JAX
            package, the whole loop as one compiled XLA program.
   sharded  the client axis split over a mesh of devices (not ported).
-  proc     N OS processes over localhost TCP sockets (not ported).
+  proc     N OS processes over real localhost TCP sockets
+           (launch/runtime), each running its client group's kernels on
+           the run's device; communication is MEASURED, not modeled, and
+           stragglers emerge from network timing.  COPML only.
 
 Engine kinds live in a registry (`register_kind` / `names`).  `EngineSpec`
 is the value the front doors pass around; `parse` accepts the spec itself
 or a plain string ("eager" | "jit" | "sharded[:N]" | "proc[:N]") and
 raises wherever the JAX package's `parse` raises, so `fit` and `serve`
-refuse the same specs and record the same `label`.  `mesh` and `net` are
-opaque fields here: the multi-device and proc engines are not ported.
+refuse the same specs and record the same `label`.  `net` is a
+launch.runtime NetConfig (the proc engine's link model and timeout
+policy); `mesh` is an opaque field here: the multi-device engine is not
+ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+from ..launch.runtime.config import NetConfig  # noqa: F401  (re-export)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,15 +64,19 @@ register_kind(EngineKind(
     "sharded", "client axis sharded over a ('clients',) mesh",
     takes_devices=True, takes_mesh=True))
 register_kind(EngineKind(
-    "proc", "N OS processes over real TCP sockets",
+    "proc", "N OS processes over real TCP sockets (launch/runtime)",
     takes_devices=True, takes_net=True))
+
+#: snapshot of the builtin kinds; enumeration surfaces should prefer the
+#: live `names()` so later-registered kinds appear automatically
+ENGINES = names()
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineSpec:
     """One execution strategy.  `devices` is the shard/process count
-    (sharded and proc); `mesh` (sharded only) and `net` (proc only) are
-    carried as given."""
+    (sharded and proc); `mesh` (sharded only) is carried as given; `net`
+    (proc only) is a launch.runtime NetConfig."""
     kind: str
     devices: int | None = None
     mesh: object | None = None

@@ -17,13 +17,16 @@ paper's Section V comparison as a registry, with the JAX package's names:
                 the exchange (core/secure_agg); fault plans pick each
                 round's T+1 share holders.
 
-The engines are "jit" and "eager", parsed by api/engine.py as in the JAX
-package ("jit:4" raises; a result records the spec's label).  For the
-field protocols they are the same Python loop (no CUDA graph yet); for
-float and poly_float "eager" is the float64 trainer and "jit" the float32
-one, as in the JAX package.  The sharded and proc engines are not ported.  A run uses the CUDA card unless
-the caller passes device="cpu"; with no card and no device it raises.
-Drivers are cached per (workload, device[, REPRO_FUSED_STEP]).
+Engine specs are parsed by api/engine.py as in the JAX package ("jit:4"
+raises; a result records the spec's label).  Every protocol runs "jit"
+and "eager": for the field protocols they are the same Python loop (no
+CUDA graph yet); for float and poly_float "eager" is the float64 trainer
+and "jit" the float32 one, as in the JAX package.  copml also runs
+"proc[:N]" (launch/runtime: N worker processes over localhost sockets,
+with measured communication); the sharded engine is not ported.  A run
+uses the CUDA card unless the caller passes device="cpu"; with no card
+and no device it raises.  Drivers are cached per (workload, device[,
+REPRO_FUSED_STEP]).
 """
 
 from __future__ import annotations
@@ -35,16 +38,15 @@ import numpy as np
 from ..core import baselines, cost_model, secure_agg
 from ..core import objectives as objectives_mod
 from ..core.protocol import Copml, fused_mode_from_env, resolve_device
+from ..launch import runtime
 from ..train import elastic
 from . import engine as engine_mod
 from . import faults as faults_mod
 from . import result as result_mod
 from . import workloads as workloads_mod
 
-ENGINES = ("jit", "eager")
 # engines of the JAX package that this port does not run yet
-NOT_PORTED = {"sharded": "the multi-device engine, ROADMAP Queue A item 3",
-              "proc": "the proc:N runtime, ROADMAP Queue A item 2"}
+NOT_PORTED = {"sharded": "the multi-device engine, ROADMAP Queue A item 3"}
 
 PROTOCOLS: dict = {}
 
@@ -72,7 +74,8 @@ def fit(workload, protocol: str = "copml", engine: str = "jit", *, key=0,
 
     workload: registry name or a workloads.Workload.
     protocol: a name in PROTOCOLS.
-    engine:   "jit" | "eager" | an api.EngineSpec (api.parse_engine).
+    engine:   "jit" | "eager" | "proc[:N]" (copml) | an api.EngineSpec
+              (api.parse_engine).
     key:      int seed, or a JAX key's data as a (2,) uint32 array.
     iters:    GD iterations (None = the workload's default).
     subset:   decode subset (copml, secure_agg); None inherits the
@@ -138,8 +141,15 @@ class Protocol:
 
         timings: dict = {}
         t0 = time.perf_counter()
-        w, hist, state = self._run(wl, spec.kind, key, iters, subset,
-                                   history, plan, dev, timings)
+        out = self._run(wl, spec, key, iters, subset, history, plan, dev,
+                        timings)
+        # engines that MEASURE their communication (proc) return a 4th
+        # element; the in-process engines keep the 3-tuple contract
+        if len(out) == 4:
+            w, hist, state, measured = out
+        else:
+            w, hist, state = out
+            measured = None
         w = w.cpu().numpy()
         hist = None if hist is None else hist.cpu().numpy()
         wall = time.perf_counter() - t0
@@ -156,7 +166,8 @@ class Protocol:
             per_class_accuracy=obj.per_class_accuracy(w, x_eval, y_eval),
             cost=self.cost(wl, iters), device=str(dev), timings=timings,
             state=state,
-            availability=None if plan is None else plan.available.copy())
+            availability=None if plan is None else plan.available.copy(),
+            measured_comm=measured)
 
     def _resolve_plan(self, wl, iters: int, faults) -> faults_mod.FaultPlan:
         """Check a FaultPlan against this protocol and workload, cut it to
@@ -188,11 +199,11 @@ class Protocol:
     def _validate_plan(self, wl, plan: faults_mod.FaultPlan):
         raise NotImplementedError            # supports_faults protocols only
 
-    def _run(self, wl, engine, key, iters, subset, history, plan, device,
+    def _run(self, wl, spec, key, iters, subset, history, plan, device,
              timings):
-        """-> (weights, history-or-None, protocol-native state); weights
-        and history are tensors.  `engine` is the kind ("jit" | "eager");
-        `timings` receives setup_s and iters_s."""
+        """-> (weights, history-or-None, protocol-native state[, measured
+        communication]); weights and history are tensors.  `spec` is the
+        parsed EngineSpec; `timings` receives setup_s and iters_s."""
         raise NotImplementedError
 
     def cost(self, wl, iters: int) -> dict | None:
@@ -208,8 +219,34 @@ class Protocol:
 # ------------------------------------------------------------------ copml
 
 
+def run_copml_engine(proto: Copml, spec, key, client_xs, client_ys,
+                     iters: int, subset=None, history: bool = False,
+                     step_subsets=None, adversaries=None,
+                     timings: dict | None = None) -> tuple:
+    """The one dispatch from an EngineSpec to a Copml engine.
+
+    "eager" and "jit" both run Copml.train (the same Python loop here);
+    step_subsets/adversaries carry a FaultPlan's per-step decode subsets
+    and corruption mask.  Returns (state, weights, history-or-None).
+    The proc engine, which also returns its measured communication, is
+    launch.runtime.run_copml_proc (api.fit calls it); the sharded engine
+    is not ported."""
+    spec = engine_mod.parse(spec)
+    if spec.kind in NOT_PORTED:
+        raise ValueError(f"the {spec.kind} engine is not ported yet "
+                         f"({NOT_PORTED[spec.kind]})")
+    if spec.kind not in ("eager", "jit"):
+        raise ValueError(f"run_copml_engine runs the eager and jit engines, "
+                         f"not {spec.label!r}; the proc engine is "
+                         f"launch.runtime.run_copml_proc")
+    return proto.train(key, client_xs, client_ys, iters, subset=subset,
+                       history=history, timings=timings,
+                       step_subsets=step_subsets, adversaries=adversaries)
+
+
 class CopmlProtocol(Protocol):
     name = "copml"
+    engines = ("eager", "jit", "proc")
     supports_subset = True           # decode from any R of N clients
     supports_faults = True           # per-step FaultPlan schedules
 
@@ -233,17 +270,30 @@ class CopmlProtocol(Protocol):
     def _validate_plan(self, wl, plan):
         plan.validate(self.fault_threshold(wl), "COPML decode")
 
-    def _run(self, wl, engine, key, iters, subset, history, plan, device,
+    def _run(self, wl, spec, key, iters, subset, history, plan, device,
              timings):
+        proto = self.driver(wl, device)
+        cx, cy = wl.client_data()
+        if spec.kind == "proc":
+            if plan is not None:
+                raise ValueError(
+                    "the proc engine has no FaultPlan replay: stragglers "
+                    "emerge from real socket timing -- inject latency / "
+                    "deadlines via EngineSpec('proc', net=NetConfig(...)) "
+                    "instead")
+            state, w, hist, measured = runtime.run_copml_proc(
+                proto, key, cx, cy, iters, procs=spec.devices,
+                net_cfg=spec.net, subset=subset, history=history,
+                timings=timings)
+            return w, hist, state, measured
         fault_kw = {}
         if plan is not None:
             fault_kw = dict(
                 step_subsets=plan.subsets(self.fault_threshold(wl)),
                 adversaries=plan.adversary if plan.has_adversaries else None)
-        cx, cy = wl.client_data()
-        state, w, hist = self.driver(wl, device).train(
-            key, cx, cy, iters, subset=subset, history=history,
-            timings=timings, **fault_kw)
+        state, w, hist = run_copml_engine(proto, spec, key, cx, cy, iters,
+                                          subset=subset, history=history,
+                                          timings=timings, **fault_kw)
         return w, hist, state
 
     def cost(self, wl, iters):
@@ -266,11 +316,11 @@ class MpcBaselineProtocol(Protocol):
                 objective=wl.objective, device=device)
         return self._drivers[key]
 
-    def _run(self, wl, engine, key, iters, subset, history, plan, device,
+    def _run(self, wl, spec, key, iters, subset, history, plan, device,
              timings):
         mb = self.driver(wl, device)
         x, y, _, _ = wl.data()
-        if engine == "jit":
+        if spec.kind == "jit":
             out = mb.train_scan(key, x, y, iters, history=history,
                                 timings=timings)
             return out[1], (out[2] if history else None), out[0]
@@ -289,13 +339,13 @@ class FloatProtocol(Protocol):
     poly = False        # PolyFloatProtocol flips this: same float engine,
     #                     ghat's polynomial instead of the exact activation
 
-    def _run(self, wl, engine, key, iters, subset, history, plan, device,
+    def _run(self, wl, spec, key, iters, subset, history, plan, device,
              timings):
         x, y, _, _ = wl.data()
         obj, eta = wl.objective, wl.cfg.eta
         r, bound = wl.cfg.r, wl.cfg.sigmoid_bound
         kw = dict(device=device, timings=timings)
-        if engine == "jit":
+        if spec.kind == "jit":
             if not isinstance(obj, objectives_mod.BinaryLogistic):
                 w, hist = baselines.float_objective_scan(
                     obj, x, y, eta, iters, history=history, poly=self.poly,
@@ -354,7 +404,7 @@ class SecureAggProtocol(Protocol):
         return elastic.secure_agg_budget(wl.n_clients,
                                          wl.cfg.t).recovery_threshold
 
-    def _run(self, wl, engine, key, iters, subset, history, plan, device,
+    def _run(self, wl, spec, key, iters, subset, history, plan, device,
              timings):
         cx, cy = wl.client_data()
         cfg = self.agg_config(wl)
@@ -362,7 +412,7 @@ class SecureAggProtocol(Protocol):
                   timings=timings,
                   step_subsets=None if plan is None else
                   plan.subsets(cfg.t + 1))
-        if engine == "jit":
+        if spec.kind == "jit":
             w, hist = secure_agg.secure_logreg_scan(
                 key, cx, cy, cfg, wl.cfg.eta, iters, history=history, **kw)
             return w, hist, cfg

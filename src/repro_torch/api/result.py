@@ -1,5 +1,5 @@
 """TrainResult: the return value of api.fit, with the JAX package's schema
-(measured_comm, the proc engine's record, is not produced by this port)."""
+(plus the port's `device` and `timings`)."""
 
 from __future__ import annotations
 
@@ -62,6 +62,20 @@ class TrainResult:
     availability   the run's FaultPlan availability, bool (iters, N) (True =
                    the client contributed honestly and on time that step),
                    or None for a fault-free run
+    measured_comm  MEASURED (not modeled) communication record of a
+                   proc-engine run, None for the in-process engines:
+                   bytes_by_phase / frames_by_phase (wire bytes/frames
+                   actually sent, summed over every process, keyed by
+                   protocol phase: setup, encode, exchange, trunc_open,
+                   open_model), total_bytes, dropped_frames (stale frames
+                   discarded at receivers), seconds_by_phase (per-phase
+                   wall time, max over workers = the critical path),
+                   degraded_steps (steps where some holder decoded from
+                   a strict subset of owners), setup_wall_s, wall_s,
+                   procs, iters (the JAX package's keys), and workers:
+                   each rank's device, kernel launches by name and by
+                   GEMM path, and GEMMs by shape.  Sits alongside `cost`
+                   (the WAN model) for the measured-vs-modeled comparison
     """
     workload: str
     protocol: str
@@ -78,6 +92,7 @@ class TrainResult:
     timings: dict | None = None
     state: object = None
     availability: np.ndarray | None = None
+    measured_comm: dict | None = None
 
     @property
     def triple(self) -> tuple:
@@ -97,6 +112,12 @@ class TrainResult:
         if self.cost is not None:
             parts.append(f"modeled total {self.cost['total_s']:.0f}s "
                          f"(comm {self.cost['comm_s']:.0f}s)")
+        if self.measured_comm is not None:
+            mc = self.measured_comm
+            parts.append(f"measured {mc['total_bytes'] / 1e6:.2f}MB "
+                         f"over {mc['procs']} procs")
+            if mc.get("degraded_steps"):
+                parts.append(f"({mc['degraded_steps']} degraded steps)")
         if self.availability is not None:
             n = self.availability.shape[1]
             parts.append(f"churn: min {int(self.availability.sum(1).min())}"

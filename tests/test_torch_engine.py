@@ -51,12 +51,17 @@ def test_registry_and_specs_match_the_jax_package():
 
 
 def test_api_exports_the_jax_package_names():
+    from repro import api as japi
     for name in ("EngineSpec", "EngineKind", "parse_engine",
                  "register_engine_kind", "engine_names", "register_objective",
-                 "objective_names", "EAGER", "JIT", "SHARDED", "PROC"):
+                 "objective_names", "EAGER", "JIT", "SHARDED", "PROC",
+                 "ENGINES", "NetConfig", "run_copml_engine"):
         assert name in api.__all__ and hasattr(api, name), name
+    assert set(japi.__all__) <= set(api.__all__)
     assert api.parse_engine is engine.parse
     assert api.engine_names() == engine.names()
+    assert api.ENGINES == engine.ENGINES == japi.ENGINES == jengine.names()
+    assert api.NetConfig is engine.NetConfig
     assert api.objective_names() == jobjectives.names()
 
 
@@ -66,10 +71,22 @@ def test_fit_refuses_what_the_jax_parse_refuses(spec):
         api.fit("smoke", "copml", spec, iters=1, device="cpu")
 
 
-@pytest.mark.parametrize("spec", ["sharded:2", "proc:3"])
-def test_fit_names_the_roadmap_item_of_an_engine_not_ported(spec):
-    with pytest.raises(ValueError, match="not ported yet"):
-        api.fit("smoke", "copml", spec, iters=1, device="cpu")
+@pytest.mark.parametrize("protocol,spec", [
+    pytest.param("copml", "sharded:2", id="sharded:2"),
+    pytest.param("mpc_baseline", "proc:4", id="mpc_baseline-proc:4")])
+def test_fit_names_the_roadmap_item_of_an_engine_not_ported(protocol, spec):
+    """The sharded engine names its ROADMAP item; proc runs copml only,
+    and another protocol refuses it with the JAX package's exception
+    type, before any compute."""
+    if protocol == "copml":
+        with pytest.raises(ValueError, match="not ported yet"):
+            api.fit("smoke", protocol, spec, iters=1, device="cpu")
+        return
+    from repro import api as japi
+    with pytest.raises(Exception) as want:
+        japi.fit("smoke", protocol, spec, iters=1)
+    with pytest.raises(type(want.value), match="supports engines"):
+        api.fit("smoke", protocol, spec, iters=1, device="cpu")
 
 
 @pytest.fixture(scope="module")

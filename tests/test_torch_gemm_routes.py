@@ -119,6 +119,36 @@ def test_serving_scores_take_the_splitk_path_at_full_width(monkeypatch, b):
         "thin": {((1, 1, wl.cfg.t + 1), (1, wl.cfg.t + 1, b))}}
 
 
+@pytest.mark.parametrize("workload,procs", [("cifar10_case2", 4),
+                                            ("cifar10_case2", 3),
+                                            ("mnist10_like", 4)])
+def test_proc_worker_gemms_take_the_thin_path(workload, procs):
+    """Every field GEMM a proc worker makes at full width (share rows,
+    LCC encode, the encode's reduce-scatter segments, the gradient-share
+    blocks, the decode), with the strides the worker passes, routes to
+    the thin kernel; its coded-gradient shape has a gradient plan.  The
+    plan is pure: shapes only (tests/test_torch_runtime_engine.py holds
+    step_gemms to what the workers of CPU fits launched)."""
+    from repro_torch.kernels.plan import gradient_plan, strip_run
+    from repro_torch.launch.runtime import worker
+    wl = api.get_workload(workload)
+    c = wl.objective.n_outputs
+    step = worker.step_gemms(wl.n_clients, wl.cfg.k, wl.cfg.t, wl.d * c,
+                             procs, wl.cfg.recovery_threshold)
+    assert sum(step.values()) == 3 + 1 + 2 * procs + 1
+    for op, ash, ast, bsh, bst in step:
+        a = torch.empty_strided(ash, ast, dtype=torch.int32, device="meta")
+        b = torch.empty_strided(bsh, bst, dtype=torch.int32, device="meta")
+        if op == "modmatmul":
+            a, b = a[None], b[None]
+        assert mm.path_of(a, b) == "thin", (op, ash, ast, bsh, bst)
+    n_loc = -(-wl.n_clients // procs)
+    mk = -(-wl.m // wl.cfg.k)
+    plan = gradient_plan(mk, wl.d, c)
+    run, ctas = strip_run(n_loc * -(-mk // plan["bm"]), 132 * 2)
+    assert run * ctas >= n_loc * -(-mk // plan["bm"]) > run * (ctas - 1)
+
+
 def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   REPO / "chip_smoke.py")

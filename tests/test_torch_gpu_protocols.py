@@ -133,3 +133,39 @@ def test_baseline_z_gemm_matches_plain(cuda, c):
     got = mm.modmatmul_batched(x.to(cuda), w.to(cuda)).cpu()
     np.testing.assert_array_equal(got.numpy(),
                                   ref.modmatmul_batched(x, w).numpy())
+
+
+def test_proc_engine_smoke_golden_on_the_card(cuda, chip_smoke):
+    """proc:4 on the card: four worker processes, each with its own CUDA
+    context, land on the smoke goldens with the budgeted frames; every
+    worker ran on cuda, launched its coded-gradient kernel once a step,
+    and took no GEMM down the tiled path."""
+    from repro_torch.core import cost_model
+    res = api.fit("smoke", "copml", "proc:4", key=0, iters=10)
+    np.testing.assert_array_equal(np.asarray(res.weights, np.float64),
+                                  np.asarray(chip_smoke.GOLDEN_W))
+    assert chip_smoke.sha(res.state.w_shares.cpu().numpy(), np.int32) == \
+        chip_smoke.GOLDEN_SHARES_SHA
+    assert chip_smoke.sha(res.history, np.float32) == \
+        chip_smoke.GOLDEN_HIST_SHA
+    mc = res.measured_comm
+    assert mc["frames_by_phase"] == cost_model.proc_net_frames(
+        4, 10, history=True)
+    for rec in mc["workers"]:
+        assert rec["device"].startswith("cuda")
+        assert rec["launches"]["coded_gradient_batched"] == 10
+        assert rec["launches"]["fused_step"] == 0
+        assert rec["gemm_paths"]["thin"] > 0
+        assert rec["gemm_paths"]["tiled"] == 0
+
+
+def test_proc_engine_pinned_subset_on_the_card(cuda):
+    """smoke_straggler's default decode subset pinned through proc:3 (13
+    clients in groups of 5, the last with 2 zero rows): the workers wait
+    for exactly the ranks that cover it, and land on the jit fit's bits."""
+    ref = api.fit("smoke_straggler", "copml", "jit", history=False)
+    res = api.fit("smoke_straggler", "copml", "proc:3", history=False)
+    np.testing.assert_array_equal(res.weights, ref.weights)
+    np.testing.assert_array_equal(res.state.w_shares.cpu().numpy(),
+                                  ref.state.w_shares.cpu().numpy())
+    assert res.measured_comm["degraded_steps"] == 0

@@ -15,6 +15,7 @@ import torch
 from repro_torch import api
 from repro_torch.core import protocol
 from repro_torch.kernels import build, ops
+from repro_torch.launch.runtime import session
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
@@ -43,6 +44,13 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.fit("smoke", "copml", "jit", iters=1)
+
+    def spawn(*args, **kw):
+        raise AssertionError("a proc fit with no card spawned a worker")
+
+    monkeypatch.setattr(session.subprocess, "Popen", spawn)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.fit("smoke", "copml", "proc:4", iters=1)
     wl = api.get_workload("smoke")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         protocol.Copml(wl.cfg, wl.m, wl.d)

@@ -242,9 +242,10 @@ def test_protocol_registry_and_validation():
         api.fit("smoke", "quantum", "jit", device="cpu")
     with pytest.raises(ValueError, match="supports engines"):
         api.fit("smoke", "float", "sharded", device="cpu")
-    for engine, item in (("sharded:4", "item 3"), ("proc:2", "item 2")):
-        with pytest.raises(ValueError, match=item):
-            api.fit("smoke", "copml", engine, device="cpu")
+    with pytest.raises(ValueError, match="item 3"):
+        api.fit("smoke", "copml", "sharded:4", device="cpu")
+    with pytest.raises(ValueError, match="supports engines"):
+        api.fit("smoke", "float", "proc:2", device="cpu")
     with pytest.raises(ValueError, match="straggler-subset"):
         api.fit("smoke", "float", "jit", subset=(0, 1, 2), device="cpu")
     # a workload's default subset only binds protocols that decode one
