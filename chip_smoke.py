@@ -39,7 +39,10 @@ Phases (a failed phase fails the run; no failure is caught):
               (13, 902, 3073) with the last rank's 2 zero-padded clients,
               coded_gradient_matrix (4, 98, 24, 10) with 3, and every field
               GEMM of a worker's step at its strides (worker.step_gemms),
-              each on the thin kernel
+              each on the thin kernel (a sharded:4 rank's with the rings);
+              then a sharded:4 rank's other GEMMs: the monolithic
+              reduce-scatter's and all-to-all's, and its serving scores
+              (B, 3073) @ (3073, 13) at batch 1, 32 and 128
   3. golden   api.fit on cuda reproduces the smoke goldens (weights, share
               and history sha256) and the pinned mnist10_like /
               linreg_smoke / cifar10_like / smoke_straggler shas of the JAX
@@ -100,6 +103,19 @@ Phases (a failed phase fails the run; no failure is caught):
               the CLI: `python -m repro_torch.api.cli smoke --iters 10` and
               its `serve` (serve_main) as subprocesses, and in-process, where
               the fit lands on GOLDEN_W
+ 10. sharded  api.fit(FULL_WORKLOAD, "copml", "sharded:4", iters=5): the
+              client axis split over 4 rank processes on one
+              torch.distributed group (gloo through the host with every
+              rank on the one card; NCCL with one card a rank), bit-equal
+              to phase 4's jit fit (weights, shares, history); every rank
+              on cuda, its coded_gradient_batched once a step, no GEMM on
+              the tiled kernel, its peak memory and bytes sent by
+              collective; setup s and ms/iter; then sharded:1 on NCCL, a
+              fault plan with an adversary on sharded:4 under
+              REPRO_SHARDED_OVERLAP 0 and 1 (bit-equal to jit under the
+              plan), mnist10_like on sharded:4 (coded_gradient_matrix in
+              the ranks) and serving the full-width result on sharded:4 at
+              batch 1, 32 and 128 (every window equal to reference_scores)
 
 Output: one {"kernels": [...]} JSON line (the seven TPU kernels' ports,
 then the row-dot and split-K paths of modmatmul as entries of their own,
@@ -200,6 +216,8 @@ SERVE_BATCHES = (1, 32, 128)
 SERVE_QUERIES = 1024
 PROC_N = 4
 PROC_ENGINE = f"proc:{PROC_N}"
+SHARDED_N = 4
+SHARDED_ENGINE = f"sharded:{SHARDED_N}"
 # rank 3's frames arrive 0.35 s late everywhere; the others decode after
 # 0.05 s without its blocks
 STRAGGLER_NET = dict(links=((3, None, 0.35),), decode_timeout_s=0.05)
@@ -1190,6 +1208,39 @@ def phase_kernels_protocols(ck: Checker, quick: bool) -> dict:
     return rows
 
 
+def strided_gemm_row(ck: Checker, name: str, ash, ast, bsh, bst,
+                     what: str, count: int) -> dict:
+    """One field GEMM with the shapes and strides a caller passes, against
+    its plain version (CPU copies, exact) and timed by device time with
+    its bound; appended to ck.rows and returned."""
+    torch = ck.torch
+    from repro_torch.kernels import modmatmul as mm
+    from repro_torch.kernels import ref
+    a, abase = strided_field(ck, ash, ast)
+    b, bbase = strided_field(ck, bsh, bst)
+    path = mm.path_of(*((a[None], b[None]) if name == "modmatmul"
+                        else (a, b)))
+    fn = (lambda f, a_, b_: lambda: f(a_, b_))(getattr(mm, name), a, b)
+    out = fn()
+    ck.compare(name, out[..., :2048],
+               getattr(ref, name)(a.cpu(), b[..., :2048].cpu()),
+               f"{what}: {path} {ash}@{bsh} strides {ast} {bst}")
+    bsz, (m_, k_), n_ = ((1, ash, bsh[1]) if name == "modmatmul"
+                         else (ash[0], ash[1:], bsh[2]))
+    bb, by = bound(4.0 * (min(a.numel(), abase.numel())
+                          + min(b.numel(), bbase.numel()) + out.numel()),
+                   2.0 * bsz * m_ * k_ * n_)
+    rec = dict(shape=f"{ash}@{bsh} strides {ast} {bst}", path=path,
+               launches_per_step=count, ms=ck.time_ms(fn, 30),
+               device_ms=device_ms(torch, fn, 30),
+               plain_ms=ck.time_ms(lambda: getattr(ref, name)(a, b), 2),
+               bound_ms=bb, bound_by=by)
+    ck.rows.append(dict(kernel=name, what=what, **rec))
+    log(f"  {what}: {name:17s} {rec['shape']:60s} x{count}/step "
+        f"{path} {rec['device_ms']} ms (bound {bb:.4f})")
+    return rec
+
+
 def phase_kernels_proc(ck: Checker, quick: bool) -> dict:
     """The kernels at the shapes a proc:4 worker gives them (one rank's
     n_loc = 13 clients of cifar10_case2, the last rank's 2 of them zero
@@ -1201,7 +1252,6 @@ def phase_kernels_proc(ck: Checker, quick: bool) -> dict:
     kernels line's "proc worker" shapes by kernel."""
     torch = ck.torch
     from repro_torch.kernels import coded_gradient as cg
-    from repro_torch.kernels import modmatmul as mm
     from repro_torch.kernels import ref
     from repro_torch.launch.runtime import worker
     if quick:
@@ -1229,31 +1279,22 @@ def phase_kernels_proc(ck: Checker, quick: bool) -> dict:
         del x, w, co, args, fn
     gemms = worker.step_gemms(50, 10, 7, 3073, 4, 49)
     for (name, ash, ast, bsh, bst), count in sorted(gemms.items()):
-        a, abase = strided_field(ck, ash, ast)
-        b, bbase = strided_field(ck, bsh, bst)
-        path = mm.path_of(*((a[None], b[None]) if name == "modmatmul"
-                            else (a, b)))
-        assert path == "thin", (name, ash, bsh, path)
-        fn = (lambda f, a_, b_: lambda: f(a_, b_))(getattr(mm, name), a, b)
-        out = fn()
-        ck.compare(name, out[..., :2048],
-                   getattr(ref, name)(a.cpu(), b[..., :2048].cpu()),
-                   f"proc worker {path} {ash}@{bsh} strides {ast} {bst}")
-        bsz, (m_, k_), n_ = ((1, ash, bsh[1]) if name == "modmatmul"
-                             else (ash[0], ash[1:], bsh[2]))
-        bb, by = bound(4.0 * (min(a.numel(), abase.numel())
-                              + min(b.numel(), bbase.numel()) + out.numel()),
-                       2.0 * bsz * m_ * k_ * n_)
-        rec = dict(shape=f"{ash}@{bsh} strides {ast} {bst}", path=path,
-                   launches_per_step=count, ms=ck.time_ms(fn, 30),
-                   device_ms=device_ms(torch, fn, 30),
-                   plain_ms=ck.time_ms(
-                       lambda: getattr(ref, name)(a, b), 2),
-                   bound_ms=bb, bound_by=by)
-        ck.rows.append(dict(kernel=name, what="proc:4 worker step", **rec))
-        log(f"  proc worker {name:17s} {rec['shape']:60s} x{count}/step "
-            f"{rec['device_ms']} ms (bound {bb:.4f})")
-        del a, b, abase, bbase, out, fn
+        rec = strided_gemm_row(ck, name, ash, ast, bsh, bst,
+                               "proc:4 worker step", count)
+        assert rec["path"] == "thin", (name, ash, bsh, rec["path"])
+    # a sharded:4 rank's GEMMs: with REPRO_SHARDED_OVERLAP=1 (the rings)
+    # those of a proc:4 worker; the monolithic forms' two; its scores when
+    # serving at each of SERVE_BATCHES
+    n_pad, dw = 52, 3073
+    for what, name, ash, ast, bsh, bst, count in [
+            ("sharded:4 rank, monolithic reduce-scatter", "modmatmul",
+             (1, 13), (13, 1), (13, 50 * dw), (50 * dw, 1), 1),
+            ("sharded:4 rank, monolithic all-to-all", "modmatmul",
+             (n_pad, 7), (7, 1), (7, 13 * dw), (n_pad * dw, 1), 1)] + [
+            (f"sharded:4 rank, serving batch {b}", "modmatmul",
+             (b, dw), (dw, 1), (dw, 13), (13, 1), 1)
+            for b in SERVE_BATCHES]:
+        strided_gemm_row(ck, name, ash, ast, bsh, bst, what, count)
     torch.cuda.empty_cache()
     log(f"kernels: the proc:4 workers' shapes passed {dict(ck.checks)}")
     return rows
@@ -1644,6 +1685,211 @@ def phase_proc(ck: Checker, np, fused) -> tuple:
     return summary, runs
 
 
+def rank_reset(rank) -> None:
+    """(On a mesh rank) zero its launch counts."""
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+
+
+def rank_counts(rank) -> dict:
+    """(On a mesh rank) its launch counts, run_counts' keys."""
+    return run_counts()
+
+
+def sharded_counts(coord: dict, ranks: list) -> dict:
+    """Launches of a sharded run, run_counts' keys: the caller's (its setup
+    and the final opening) plus every rank's."""
+    total = dict(coord)
+    for rec in ranks:
+        for name, c in rec["launches"].items():
+            total[name] += c
+        for path, c in rec["gemm_paths"].items():
+            total[f"gemm:{path}"] += c
+    return total
+
+
+def sharded_ranks_ok(res, iters: int, kernel: str, mesh) -> None:
+    """Every rank ran on its card with the mesh's backend, launched
+    `kernel` (its coded gradient) once a step and fused_step never, and
+    took no GEMM down the tiled path."""
+    ranks = res.timings["ranks"]
+    assert [r["device"] for r in ranks] == [str(d) for d in mesh.devices], \
+        ranks
+    for rec in ranks:
+        assert rec["device"].startswith("cuda"), rec
+        assert rec["backend"] == mesh.backend, rec
+        assert rec["launches"][kernel] == iters, rec["launches"]
+        assert rec["launches"]["fused_step"] == 0, rec["launches"]
+        assert rec["gemm_paths"]["thin"] > 0, rec["gemm_paths"]
+        assert rec["gemm_paths"]["tiled"] == 0, rec["gemm_paths"]
+
+
+def fit_sharded(ck: Checker, workload, engine, iters: int, **kw) -> tuple:
+    """api.fit(workload, "copml", engine) on the card with the launch
+    counts reset just before and read just after (the caller's plus every
+    rank's); returns (result, counts, caller peak bytes above what was
+    held when it started)."""
+    torch = ck.torch
+    from repro_torch import api
+    from repro_torch.kernels import ops
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    res = api.fit(workload, "copml", engine, key=0, iters=iters,
+                  device="cuda", **kw)
+    counts = sharded_counts(run_counts(), res.timings["ranks"])
+    return res, counts, torch.cuda.max_memory_allocated() - held
+
+
+def same_state(np, got, want, what) -> None:
+    """Weights, history and model shares equal."""
+    same_model(np, got, want, what)
+    np.testing.assert_array_equal(got.state.w_shares.cpu().numpy(),
+                                  want.state.w_shares.cpu().numpy(),
+                                  err_msg=f"{what}: shares")
+
+
+def phase_sharded(ck: Checker, np, fused) -> tuple:
+    """The sharded engine on the card: FULL_WORKLOAD over SHARDED_N rank
+    processes, bit-equal to phase 4's jit fit; sharded:1 on NCCL; a fault
+    plan with an adversary on both REPRO_SHARDED_OVERLAP settings against
+    jit under the same plan; mnist10_like (the matrix kernel in the
+    ranks); serving the full-width result on SHARDED_N ranks at every
+    SERVE_BATCHES.  Returns (summary, {run: counts})."""
+    torch = ck.torch
+    from repro_torch import api
+    from repro_torch.core import meshutil
+    from repro_torch.kernels import modmatmul as mm
+    from repro_torch.serve import coded
+    wl = api.get_workload(FULL_WORKLOAD)
+    wl.client_data()                       # dataset build is set-up
+    t0 = time.perf_counter()
+    mesh = meshutil.client_mesh(SHARDED_N, "cuda")
+    spawn_s = time.perf_counter() - t0
+    cards = torch.cuda.device_count()
+    want_backend = "nccl" if cards >= SHARDED_N else "gloo"
+    want_devices = [torch.device("cuda", r if want_backend == "nccl" else 0)
+                    for r in range(SHARDED_N)]
+    assert (mesh.backend, mesh.devices) == (want_backend, want_devices), \
+        (mesh.backend, mesh.devices)
+    log(f"sharded: {SHARDED_ENGINE} on {cards} card(s): backend "
+        f"{mesh.backend}, ranks on {[str(d) for d in mesh.devices]}, "
+        f"started in {spawn_s:.2f} s")
+
+    # (a) the full-width fit, after a one-step smoke fit that warms the
+    # ranks (their first launches load the kernels' libraries and modules)
+    api.fit("smoke", "copml", mesh, iters=1, history=False, device="cuda")
+    res, counts, peak = fit_sharded(ck, wl, SHARDED_ENGINE, FULL_ITERS)
+    assert res.engine == SHARDED_ENGINE
+    same_state(np, res, fused, f"{SHARDED_ENGINE} vs jit full-width run")
+    sharded_ranks_ok(res, FULL_ITERS, "coded_gradient_batched", mesh)
+    ranks = res.timings["ranks"]
+    summary = dict(run_summary(res, counts, peak), backend=mesh.backend,
+                   spawn_s=spawn_s, ranks=ranks)
+    log(f"sharded: {wl.name} {SHARDED_ENGINE} setup "
+        f"{summary['setup_s']:.3f} s, {summary['ms_per_iter']:.3f} ms/iter, "
+        f"caller peak {summary['peak_gib']:.2f} GiB, accuracy "
+        f"{res.final_accuracy:.4f} (equal to jit's); launches {counts}")
+    log("sharded: ranks " + "; ".join(
+        f"rank {r['rank']} {r['device']} {r['backend']} loop "
+        f"{r['iters_s']:.3f} s, peak {r['peak_bytes'] / 2 ** 30:.3f} GiB, "
+        f"MB sent a step "
+        f"{ {k: round(v / FULL_ITERS / 1e6, 4) for k, v in r['sent_bytes'].items()} }"
+        f", launches { {k: v for k, v in r['launches'].items() if v} }, "
+        f"paths { {k: v for k, v in r['gemm_paths'].items() if v} }"
+        for r in ranks))
+    res.state = None
+    runs = {f"{SHARDED_ENGINE} {wl.name}": counts}
+
+    # (b) one rank on NCCL
+    one = meshutil.client_mesh(1, "cuda")
+    assert (one.backend, one.devices) == ("nccl", [torch.device("cuda", 0)])
+    api.fit("smoke", "copml", one, iters=1, history=False, device="cuda")
+    r1, _, _ = fit_sharded(ck, wl, "sharded:1", FULL_ITERS)
+    same_state(np, r1, fused, "sharded:1 (nccl) vs jit full-width run")
+    sharded_ranks_ok(r1, FULL_ITERS, "coded_gradient_batched", one)
+    summary["sharded:1"] = dict(run_summary(r1, {}, 0), backend=one.backend,
+                                ranks=r1.timings["ranks"])
+    log(f"sharded: sharded:1 on nccl bit-equal to jit; "
+        f"{summary['sharded:1']['ms_per_iter']:.3f} ms/iter")
+    r1.state = None
+    one.close()
+
+    # (c) a fault plan with an adversary, both overlap settings
+    plan = api.FaultPlan.from_schedule(wl.n_clients, FULL_ITERS,
+                                       stragglers={1: (0,)},
+                                       adversaries={3: (7,)})
+    jref, _, _, _ = fit_full(ck, "1", faults=plan)
+    summary["faulty"] = {}
+    for overlap in ("0", "1"):
+        os.environ["REPRO_SHARDED_OVERLAP"] = overlap
+        try:
+            fres, fcounts, _ = fit_sharded(ck, wl, SHARDED_ENGINE,
+                                           FULL_ITERS, faults=plan)
+        finally:
+            del os.environ["REPRO_SHARDED_OVERLAP"]
+        same_state(np, fres, jref, f"faulty {SHARDED_ENGINE} overlap "
+                   f"{overlap} vs jit under the plan")
+        np.testing.assert_array_equal(fres.availability, plan.available)
+        sharded_ranks_ok(fres, FULL_ITERS, "coded_gradient_batched", mesh)
+        kinds = {"0": "all_to_all", "1": "ring_all_to_all"}[overlap]
+        assert all(kinds in r["sent_bytes"] for r in fres.timings["ranks"])
+        summary["faulty"][f"overlap {overlap}"] = run_summary(fres, fcounts,
+                                                              0)
+        log(f"sharded: fault plan (straggler at step 1, adversary from "
+            f"step 3), REPRO_SHARDED_OVERLAP={overlap}: bit-equal to jit "
+            f"under the plan, "
+            f"{summary['faulty'][f'overlap {overlap}']['ms_per_iter']:.3f} "
+            f"ms/iter")
+        fres.state = None
+    jref.state = None
+
+    # (d) the matrix kernel in the ranks
+    mref = api.fit("mnist10_like", "copml", "jit", key=0, iters=3,
+                   device="cuda")
+    mres, mcounts, _ = fit_sharded(ck, "mnist10_like", SHARDED_ENGINE, 3)
+    same_state(np, mres, mref, f"mnist10_like {SHARDED_ENGINE} vs jit")
+    sharded_ranks_ok(mres, 3, "coded_gradient_matrix", mesh)
+    runs[f"{SHARDED_ENGINE} mnist10_like"] = mcounts
+    log(f"sharded: mnist10_like {SHARDED_ENGINE} bit-equal to jit, "
+        f"launches {mcounts}")
+
+    # (e) serving the full-width result
+    q = np.asarray(wl.eval_set()[0][:SERVE_QUERIES], np.float32)
+    want = coded.reference_scores(fused.weights, q, wl.cfg,
+                                  device="cpu").numpy()
+    summary["serve"] = {}
+    for b in SERVE_BATCHES:
+        srv = api.serve(wl, fused, SHARDED_ENGINE, batch_size=b,
+                        device="cuda")
+        assert srv.model.from_shares and srv.mesh is mesh
+        got = np.concatenate([srv.score_field(q[i:i + b])
+                              for i in range(0, len(q), b)])
+        np.testing.assert_array_equal(got, want, err_msg=f"sharded {b}")
+        mesh.run(rank_reset)
+        preds, stats = srv.serve(q)
+        rc = mesh.run(rank_counts)
+        # a rank's scores: (b, d) @ (d, n_loc C'), one launch a window
+        n_loc = -(-wl.n_clients // SHARDED_N)
+        gpath = mm.path_of(torch.empty((1, b, wl.d), dtype=torch.int32),
+                           torch.empty((1, wl.d, n_loc), dtype=torch.int32))
+        for c in rc:
+            assert c[f"gemm:{gpath}"] >= stats["batches"], (gpath, c)
+            assert c["gemm:tiled"] == 0, c
+        summary["serve"][f"batch {b}"] = dict(
+            queries_per_s=stats["queries_per_s"], serve_s=stats["serve_s"],
+            encode_s=stats["encode_s"], batches=stats["batches"],
+            score_path=gpath, rank_launches=rc)
+        log(f"sharded: serve {wl.name} {SHARDED_ENGINE} batch {b}: every "
+            f"window equal to reference_scores; ranks score on {gpath}; "
+            f"{stats['queries_per_s']:.0f} queries/s over "
+            f"{stats['queries']} queries; rank 0 launches "
+            f"{ {k: v for k, v in rc[0].items() if v} }")
+        del srv
+    return summary, runs
+
+
 def set_schedule(mode: str) -> None:
     """REPRO_FUSED_STEP for the next fit ("0" siloed, "1" fused)."""
     os.environ["REPRO_FUSED_STEP"] = mode
@@ -2001,6 +2247,8 @@ def main() -> int:
         report["serve"], report["serve_launches"] = phase_serve(
             ck, np, fused, float_res)
         report["proc"], proc_runs = phase_proc(ck, np, fused)
+        report["sharded"], sharded_runs = phase_sharded(ck, np, fused)
+        proc_runs.update(sharded_runs)
         fused.state = None                 # frees its device memory
         for name in FUSED_PATH:
             counts[name] = fused_counts[name]
@@ -2026,7 +2274,8 @@ def main() -> int:
             path[name] = f"{run} cifar10_case2"
             by_path[name] = {f"{r} cifar10_case2": c.get(key, 0)
                              for r, c in runs.items()}
-        # the proc path: the coordinator's launches plus every worker's
+        # the proc and sharded paths: the caller's launches plus every
+        # worker's or rank's
         for run, c in proc_runs.items():
             for name in TPU_KERNEL:
                 gpath = PATH_ENTRIES.get(name, (None,))[0]

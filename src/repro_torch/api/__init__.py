@@ -9,6 +9,8 @@
     #                                 "poly_float", "secure_agg"
     res = api.fit("cifar10_case2", "copml", "proc:4", iters=5)
     res.measured_comm              # wire bytes, frames, seconds by phase
+    res = api.fit("cifar10_case2", "copml", "sharded:4", iters=5)
+    res.timings["ranks"]           # each rank's device, launches, bytes
     srv = api.serve("smoke", res, "jit")     # score from re-shared shares
     preds, stats = srv.serve(queries)
 

@@ -2,6 +2,7 @@
 
     python -m repro_torch.api.cli --list                 # the registries
     python -m repro_torch.api.cli smoke --engine proc:4  # on the card
+    python -m repro_torch.api.cli smoke --engine sharded:4
     python -m repro_torch.api.cli smoke --device cpu     # plain torch
     python -m repro_torch.api.cli serve smoke --queries 64   # serve_main
 
@@ -40,8 +41,8 @@ def main(argv=None) -> None:
     ap.add_argument("--protocol", default="copml",
                     choices=sorted(PROTOCOLS))
     ap.add_argument("--engine", default="jit",
-                    help='"eager" | "jit" | "proc[:N]" (see --list for the '
-                         'live registry)')
+                    help='"eager" | "jit" | "sharded[:N]" | "proc[:N]" (see '
+                         '--list for the live registry)')
     ap.add_argument("--iters", type=int, default=None,
                     help="GD iterations (default: the workload's)")
     ap.add_argument("--seed", type=int, default=0)
@@ -114,7 +115,7 @@ def serve_main(argv=None) -> None:
     ap.add_argument("--train-engine", default="jit", metavar="ENGINE",
                     help="engine for the training fit (default: jit)")
     ap.add_argument("--engine", default="jit",
-                    help='serving engine: "eager" | "jit"')
+                    help='serving engine: "eager" | "jit" | "sharded[:N]"')
     ap.add_argument("--iters", type=int, default=None,
                     help="GD iterations (default: the workload's)")
     ap.add_argument("--batch-size", type=int, default=32,

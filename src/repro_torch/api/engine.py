@@ -7,26 +7,29 @@ computed:
   eager    Python loop, one step per iteration.
   jit      the same loop in the port (no CUDA graph yet); in the JAX
            package, the whole loop as one compiled XLA program.
-  sharded  the client axis split over a mesh of devices (not ported).
+  sharded  the client axis split over a core/meshutil ClientMesh: D rank
+           processes on one torch.distributed group, each holding its
+           clients' shares; every exchange is a real collective
+           (all-to-all, reduce-scatter, all-gather).  COPML and serving.
   proc     N OS processes over real localhost TCP sockets
            (launch/runtime), each running its client group's kernels on
            the run's device; communication is MEASURED, not modeled, and
            stragglers emerge from network timing.  COPML only.
 
 Engine kinds live in a registry (`register_kind` / `names`).  `EngineSpec`
-is the value the front doors pass around; `parse` accepts the spec itself
-or a plain string ("eager" | "jit" | "sharded[:N]" | "proc[:N]") and
-raises wherever the JAX package's `parse` raises, so `fit` and `serve`
-refuse the same specs and record the same `label`.  `net` is a
-launch.runtime NetConfig (the proc engine's link model and timeout
-policy); `mesh` is an opaque field here: the multi-device engine is not
-ported.
+is the value the front doors pass around; `parse` accepts the spec itself,
+a plain string ("eager" | "jit" | "sharded[:N]" | "proc[:N]") or a
+ClientMesh (sharded over it), and raises wherever the JAX package's
+`parse` raises, so `fit` and `serve` refuse the same specs and record the
+same `label`.  `net` is a launch.runtime NetConfig (the proc engine's link
+model and timeout policy); `mesh` is a ClientMesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+from ..core import meshutil
 from ..launch.runtime.config import NetConfig  # noqa: F401  (re-export)
 
 
@@ -75,8 +78,8 @@ ENGINES = names()
 @dataclasses.dataclass(frozen=True)
 class EngineSpec:
     """One execution strategy.  `devices` is the shard/process count
-    (sharded and proc); `mesh` (sharded only) is carried as given; `net`
-    (proc only) is a launch.runtime NetConfig."""
+    (sharded and proc); `mesh` (sharded only, a ClientMesh) wins over
+    `devices`; `net` (proc only) is a launch.runtime NetConfig."""
     kind: str
     devices: int | None = None
     mesh: object | None = None
@@ -107,6 +110,14 @@ class EngineSpec:
             return f"{self.kind}:{self.devices}"
         return self.kind
 
+    def resolve_mesh(self, device=None) -> meshutil.ClientMesh:
+        """The client mesh this spec runs on (sharded only): its own, or
+        the cached mesh of `devices` ranks on `device`."""
+        assert self.kind == "sharded", self.kind
+        if self.mesh is not None:
+            return self.mesh
+        return meshutil.client_mesh(self.devices, device)
+
 
 EAGER = EngineSpec("eager")
 JIT = EngineSpec("jit")
@@ -118,6 +129,8 @@ def parse(spec) -> EngineSpec:
     """Normalize a user-supplied engine spec to an EngineSpec."""
     if isinstance(spec, EngineSpec):
         return spec
+    if isinstance(spec, meshutil.ClientMesh):
+        return EngineSpec("sharded", mesh=spec)
     if isinstance(spec, str):
         kind, _, arg = spec.partition(":")
         if arg:

@@ -22,8 +22,9 @@ raises; a result records the spec's label).  Every protocol runs "jit"
 and "eager": for the field protocols they are the same Python loop (no
 CUDA graph yet); for float and poly_float "eager" is the float64 trainer
 and "jit" the float32 one, as in the JAX package.  copml also runs
-"proc[:N]" (launch/runtime: N worker processes over localhost sockets,
-with measured communication); the sharded engine is not ported.  A run
+"sharded[:N]" (core/meshutil: the client axis split over N rank processes
+on one torch.distributed group) and "proc[:N]" (launch/runtime: N worker
+processes over localhost sockets, with measured communication).  A run
 uses the CUDA card unless the caller passes device="cpu"; with no card
 and no device it raises.  Drivers are cached per (workload, device[,
 REPRO_FUSED_STEP]).
@@ -44,9 +45,6 @@ from . import engine as engine_mod
 from . import faults as faults_mod
 from . import result as result_mod
 from . import workloads as workloads_mod
-
-# engines of the JAX package that this port does not run yet
-NOT_PORTED = {"sharded": "the multi-device engine, ROADMAP Queue A item 3"}
 
 PROTOCOLS: dict = {}
 
@@ -74,8 +72,8 @@ def fit(workload, protocol: str = "copml", engine: str = "jit", *, key=0,
 
     workload: registry name or a workloads.Workload.
     protocol: a name in PROTOCOLS.
-    engine:   "jit" | "eager" | "proc[:N]" (copml) | an api.EngineSpec
-              (api.parse_engine).
+    engine:   "jit" | "eager" | "sharded[:N]" | "proc[:N]" (copml) | an
+              api.EngineSpec or a ClientMesh (api.parse_engine).
     key:      int seed, or a JAX key's data as a (2,) uint32 array.
     iters:    GD iterations (None = the workload's default).
     subset:   decode subset (copml, secure_agg); None inherits the
@@ -107,11 +105,8 @@ class Protocol:
             history=True, faults=None, device=None) -> result_mod.TrainResult:
         spec = engine_mod.parse(engine)
         if spec.kind not in self.engines:
-            later = f"; the {spec.kind} engine is not ported yet " \
-                f"({NOT_PORTED[spec.kind]})" if spec.kind in NOT_PORTED \
-                else ""
             raise ValueError(f"protocol {self.name!r} supports engines "
-                             f"{self.engines}, not {spec.label!r}{later}")
+                             f"{self.engines}, not {spec.label!r}")
         dev = resolve_device(device)
         wl = workloads_mod.resolve(workload)
         iters = wl.iters if iters is None else int(iters)
@@ -226,27 +221,29 @@ def run_copml_engine(proto: Copml, spec, key, client_xs, client_ys,
     """The one dispatch from an EngineSpec to a Copml engine.
 
     "eager" and "jit" both run Copml.train (the same Python loop here);
-    step_subsets/adversaries carry a FaultPlan's per-step decode subsets
-    and corruption mask.  Returns (state, weights, history-or-None).
-    The proc engine, which also returns its measured communication, is
-    launch.runtime.run_copml_proc (api.fit calls it); the sharded engine
-    is not ported."""
+    "sharded" runs Copml._train_sharded on the spec's mesh (or the cached
+    mesh of its rank count on proto's device).  step_subsets/adversaries
+    carry a FaultPlan's per-step decode subsets and corruption mask.
+    Returns (state, weights, history-or-None).  The proc engine, which
+    also returns its measured communication, is
+    launch.runtime.run_copml_proc (api.fit calls it)."""
     spec = engine_mod.parse(spec)
-    if spec.kind in NOT_PORTED:
-        raise ValueError(f"the {spec.kind} engine is not ported yet "
-                         f"({NOT_PORTED[spec.kind]})")
+    kw = dict(subset=subset, history=history, timings=timings,
+              step_subsets=step_subsets, adversaries=adversaries)
+    if spec.kind == "sharded":
+        return proto._train_sharded(key, client_xs, client_ys, iters,
+                                    mesh=spec.resolve_mesh(proto.device),
+                                    **kw)
     if spec.kind not in ("eager", "jit"):
-        raise ValueError(f"run_copml_engine runs the eager and jit engines, "
-                         f"not {spec.label!r}; the proc engine is "
+        raise ValueError(f"run_copml_engine runs the eager, jit and sharded "
+                         f"engines, not {spec.label!r}; the proc engine is "
                          f"launch.runtime.run_copml_proc")
-    return proto.train(key, client_xs, client_ys, iters, subset=subset,
-                       history=history, timings=timings,
-                       step_subsets=step_subsets, adversaries=adversaries)
+    return proto.train(key, client_xs, client_ys, iters, **kw)
 
 
 class CopmlProtocol(Protocol):
     name = "copml"
-    engines = ("eager", "jit", "proc")
+    engines = ("eager", "jit", "sharded", "proc")
     supports_subset = True           # decode from any R of N clients
     supports_faults = True           # per-step FaultPlan schedules
 

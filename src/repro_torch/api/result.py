@@ -55,7 +55,10 @@ class TrainResult:
                    WAN parameters (core/cost_model), or None for protocols
                    the paper does not price (float, poly_float, secure_agg)
     timings        setup_s and iters_s: wall seconds of the setup and of the
-                   iteration loop (each ending in a device synchronise)
+                   iteration loop (each ending in a device synchronise);
+                   a sharded run adds ranks: each rank's device, backend,
+                   kernel launches by name and by GEMM path, peak device
+                   memory, bytes sent by collective and loop seconds
     state          the protocol's final state: CopmlState / MpcState
                    (torch tensors on `device`), the SecureAggConfig of a
                    secure_agg run, None for the float protocols

@@ -36,8 +36,9 @@ def serve(workload, result, engine="jit", *, key: int = 0,
                 result was trained on -- shape-checked)
     result      an api.fit TrainResult; a COPML result's share state is
                 re-shared directly (encode path never opens the model)
-    engine      "eager" | "jit" (a spec string or api.EngineSpec, parsed
-                as api.fit parses it)
+    engine      "eager" | "jit" | "sharded[:N]" (a spec string, an
+                api.EngineSpec or a ClientMesh, parsed as api.fit parses
+                it)
     key         seed of the one-time re-share randomness (an int, or a
                 JAX key's data as a (2,) uint32 array)
     batch_size  micro-batch window size (queries per scoring dispatch)
@@ -59,7 +60,9 @@ def serve(workload, result, engine="jit", *, key: int = 0,
             f"result was trained on workload {rwl!r}, not {wl.name!r}")
     model = coded.encode_model(jrandom.as_key(key), result, wl.cfg,
                                wl.objective, device)
+    mesh = spec.resolve_mesh(model.device) if spec.kind == "sharded" \
+        else None
     return SecureServer(workload=wl.name, protocol=result.protocol,
                         engine=spec.label, kind=spec.kind,
                         batch_size=batch_size, window_ms=window_ms,
-                        model=model, objective=wl.objective)
+                        model=model, objective=wl.objective, mesh=mesh)

@@ -13,6 +13,11 @@ one of two schedules, chosen by REPRO_FUSED_STEP when a Copml is built:
 Both give the same bits.  A fault plan's per-step decode subsets and
 adversaries (api/faults.FaultPlan) run on either.
 
+The sharded engine (`Copml._train_sharded`) splits the client axis over a
+core/meshutil ClientMesh of D rank processes: each rank holds only its
+clients' shares and coded rows, and the protocol's EXCHANGE and OPEN steps
+are real collectives.  It gives the bits of the in-process engines.
+
 Fixed-point scale plumbing (paper Appendix A):
 
   X quantized at 2^lx, w at 2^lw  =>  z = Xw at lz = lx+lw.
@@ -38,7 +43,8 @@ import numpy as np
 import torch
 
 from ..kernels import ops
-from . import field, lagrange, mpc, objectives, quantize, shamir, truncation
+from . import (field, lagrange, meshutil, mpc, objectives, quantize, shamir,
+               truncation)
 from . import random as jrandom
 from .labels import Coded, Opened, Public, Share
 
@@ -495,3 +501,309 @@ class Copml:
         """Reconstruct and dequantize the model."""
         w_field = mpc.open_shares(state.w_shares, self.cfg.t, self.lambdas)
         return quantize.dequantize(w_field, self.cfg.lw)
+
+    # ----------------------------------------------------- distributed engine
+
+    def _train_sharded(self, key, client_xs, client_ys, iters: int,
+                       mesh=None, subset: Sequence[int] | None = None,
+                       history: bool = False, step_subsets=None,
+                       adversaries=None, timings: dict | None = None) -> tuple:
+        """`train` with the client axis split over a meshutil.ClientMesh.
+
+        Each of the mesh's D ranks holds only its clients' model shares,
+        coded rows and X^T y shares, and each protocol step becomes the
+        collective its MPC character implies:
+
+          LOCAL     Phase-3 coded gradients, share-level add/mul-by-public
+                    -> per-rank compute, no communication
+          EXCHANGE  share_batch's owner->holder share distribution
+                    -> all-to-all; the model encoding's reconstruct
+                    -> mod-p reduce-scatter
+          OPEN      TruncPr's masked opening, the per-step model opening
+                    -> all-gather + replicated reconstruct
+
+        The bits are train's: the per-step key schedule is the same, every
+        random draw is replicated (same key, same full shape on every rank,
+        the paper's offline dealer), and the only cross-rank contractions
+        are mod-p linear reductions whose partials recombine to the same
+        canonical representative.  The setup runs once here, on this
+        Copml's device; the client axis is zero-padded to a multiple of D,
+        and padded clients carry zero Lagrange weight and a zero sharing
+        row.  REPRO_SHARDED_OVERLAP (default "1") streams the two EXCHANGE
+        collectives around rings; "0" takes the monolithic collectives.
+
+        Returns (state, w, history-or-None) as train does.  `timings`
+        receives setup_s (the setup and the dealing) and iters_s, each
+        ending when every rank has synchronised, and `ranks`: each rank's
+        device, backend, kernel launches by name and by GEMM path, peak
+        device memory, bytes sent by collective, and loop seconds."""
+        mesh = meshutil.client_mesh(None, self.device) if mesh is None \
+            else mesh
+        if mesh.device.type != self.device.type:
+            raise ValueError(f"the mesh's ranks run on {mesh.device}; this "
+                             f"Copml runs on {self.device}")
+        n, iters = self.cfg.n_clients, int(iters)
+        subset = None if subset is None else tuple(subset)
+        faults = self._fault_xs(step_subsets, adversaries, iters, subset)
+        t0 = self._sync()
+        ks, ki = jrandom.split(jrandom.as_key(key))
+        state = self.setup(ks, client_xs, client_ys)        # once, here
+        handle, n_pad = self._deal_sharded(mesh, state)
+        t1 = time.perf_counter()
+        w_pad, hist, reports = self._run_sharded(
+            mesh, handle, n_pad, ki, iters, history, subset, faults)
+        t2 = time.perf_counter()
+        if timings is not None:
+            timings.update(setup_s=t1 - t0, iters_s=t2 - t1, ranks=reports)
+        state = dataclasses.replace(state, w_shares=w_pad[:n],
+                                    step=state.step + iters)
+        return state, self.open_model(state), hist
+
+    def sharded_step(self, mesh, subset: Sequence[int] | None = None):
+        """One sharded GD iteration as fn(w, coded_x, xty, key) over PADDED
+        (n_pad, ...) client arrays on this Copml's device, returning the
+        padded model shares; returns (fn, n_pad)."""
+        subset = None if subset is None else tuple(subset)
+
+        def fn(w, coded_x, xty, key):
+            n = self.cfg.n_clients
+            state = CopmlState(w_shares=w[:n], coded_x=coded_x[:n],
+                               xty_shares=xty[:n])
+            handle, n_pad = self._deal_sharded(mesh, state)
+            return self._run_sharded(mesh, handle, n_pad,
+                                     jrandom.as_key(key), 1, False, subset,
+                                     None)[0]
+
+        return fn, _n_pad(self.cfg.n_clients, mesh.size)
+
+    def _deal_sharded(self, mesh, state: CopmlState) -> tuple:
+        """Give rank r its n_loc rows of the state's client-major tensors
+        (zero rows past the last client), kept on its device under a fresh
+        handle; returns (handle, n_pad) once every rank holds them."""
+        n_pad = _n_pad(self.cfg.n_clients, mesh.size)
+        n_loc = n_pad // mesh.size
+        rows = [_pad_clients(x.cpu(), n_pad).split(n_loc)
+                for x in (state.w_shares, state.coded_x, state.xty_shares)]
+        handle = mesh.new_handle()
+        spec = dict(cfg=self.cfg, m=self.m, d=self.d, objective=self.obj)
+        mesh.run(_rank_deal, handle, spec,
+                 per_rank=[[r[i] for r in rows] for i in range(mesh.size)])
+        return handle, n_pad
+
+    def _run_sharded(self, mesh, handle, n_pad: int, key, iters: int,
+                     history: bool, subset, faults) -> tuple:
+        """Run `iters` steps on the ranks holding `handle`; returns (padded
+        model shares on this device, history or None, rank reports)."""
+        rthr = self.cfg.recovery_threshold
+        if faults is None:
+            idx, dvs, _ = self._decode_row(subset)
+            idx = idx.cpu().expand(iters, rthr)
+            dvs = dvs.cpu().expand(iters, rthr)
+            adv = None
+        else:
+            idx, dvs, adv = (None if x is None else x.cpu() for x in faults)
+            if adv is not None:
+                # replicated (iters, n_pad) mask; padded clients honest
+                adv = _pad_clients(adv, n_pad, dim=1)
+        overlap = os.environ.get("REPRO_SHARDED_OVERLAP", "1") != "0"
+        out = mesh.run(_rank_train, handle, jrandom.as_key(key).numpy(),
+                       int(iters), bool(history), overlap, idx, dvs, adv)
+        w_pad = torch.cat([o["w"] for o in out]).to(self.device)
+        hist = None if not history else out[0]["hist"].to(self.device)
+        return w_pad, hist, [o["report"] for o in out]
+
+
+def _n_pad(n: int, ndev: int) -> int:
+    """The client axis padded to a multiple of the mesh size."""
+    return -(-n // ndev) * ndev
+
+
+def _pad_clients(arr, n_pad: int, dim: int = 0):
+    """Zero-pad the client axis `dim` to n_pad rows (mesh divisibility)."""
+    n = arr.shape[dim]
+    if n == n_pad:
+        return arr
+    shape = list(arr.shape)
+    shape[dim] = n_pad - n
+    return torch.cat([arr, arr.new_zeros(shape)], dim=dim)
+
+
+# ---------------------------------------------- the sharded engine's ranks
+#
+# Module-level so a ClientMesh can send them to its ranks by name.
+
+
+def _rank_deal(rank, handle, spec: dict, w_rows, coded_rows, xty_rows):
+    """Keep this rank's client rows, and a Copml for its device."""
+    dev = rank.device
+    rank.state[handle] = dict(
+        proto=Copml(spec["cfg"], spec["m"], spec["d"],
+                    objective=spec["objective"], device=dev),
+        w=w_rows.to(dev), coded_x=coded_rows.to(dev), xty=xty_rows.to(dev))
+    rank.sync()
+
+
+class _RankStep:
+    """One rank's share of a sharded COPML step (the JAX package's
+    shard_map body): n_loc consecutive clients of the padded axis."""
+
+    def __init__(self, rank, proto: Copml, overlap: bool):
+        cfg = proto.cfg
+        self.rank, self.proto, self.dev = rank, proto, rank.device
+        self.n, self.t = cfg.n_clients, cfg.t
+        self.ndev = rank.size
+        self.n_pad = _n_pad(self.n, self.ndev)
+        self.n_loc = self.n_pad // self.ndev
+        self.lo = rank.rank * self.n_loc
+        self.w_shape, self.dw = proto.w_shape, proto.dw
+        # ring forms need the raw int32 sum of D partials not to wrap
+        self.ring_encode = overlap and self.ndev <= meshutil.NARROW_SHARDS
+        self.ring_exchange = overlap
+        # public per-client constants, zero-padded so padded clients carry
+        # zero Lagrange weight and a zero sharing polynomial
+        pmat = np.zeros((self.n_pad, self.t), np.int32)
+        pmat[:self.n] = shamir._power_matrix(tuple(proto.lambdas), self.t)
+        wall = np.zeros((self.n_pad,), np.int32)
+        wall[:self.n] = shamir._recon_matrix(tuple(proto.lambdas))[0]
+        self.pmat_all = torch.from_numpy(pmat).to(self.dev)
+        self.pmat_loc = self.pmat_all[self.lo:self.lo + self.n_loc]
+        self.wall_loc = torch.from_numpy(wall).to(self.dev)[
+            self.lo:self.lo + self.n_loc]
+        self.enc_mat = proto._enc[None].expand(self.n_loc, self.n,
+                                               cfg.k + self.t)
+
+    def share_rows(self, keyc, secret):
+        """This rank's holder rows of shamir.share(keyc, secret, t, n): the
+        coefficient draw is replicated (the same key on every rank), only
+        the power-matrix rows are local, so each row has the global
+        share's bits."""
+        coeffs = field.random_field(keyc, (self.t,) + tuple(secret.shape),
+                                    self.dev)
+        mix = ops.modmatmul(self.pmat_loc, coeffs.reshape(self.t, -1))
+        return field.add(mix.reshape((self.n_loc,) + tuple(secret.shape)),
+                         secret[None])
+
+    def encode_model(self, key, w_loc):
+        """Phase 2 per iteration, holder-sharded: the (T,) + w_shape draw
+        is replicated; each local holder LCC-encodes its model share for
+        every owner, and the reconstruct from ALL holders is a mod-p
+        reduce-scatter of the weighted partials."""
+        n_loc, dw = self.n_loc, self.dw
+        kv, ks_ = jrandom.split(key)
+        v = field.random_field(kv, (self.t,) + self.w_shape, self.dev)
+        v_sh = self.share_rows(ks_, v)                  # (n_loc, T) + w
+        stacked = torch.cat([w_loc.reshape(n_loc, 1, dw).expand(
+            n_loc, self.proto.cfg.k, dw), v_sh.reshape(n_loc, self.t, dw)],
+            dim=1)
+        enc = ops.modmatmul_batched(self.enc_mat, stacked)  # (n_loc, N, dw)
+        if self.ring_encode:
+            enc = _pad_clients(enc, self.n_pad, dim=1)
+
+            def seg(j):
+                # rank j's rows of the weighted partial, made just before
+                # the hop that carries them
+                sl = enc[:, j * n_loc:(j + 1) * n_loc]
+                return ops.modmatmul(self.wall_loc[None, :],
+                                     sl.reshape(n_loc, -1)).reshape(n_loc, dw)
+
+            return meshutil.ring_reduce_scatter_mod(seg, self.rank)
+        part = ops.modmatmul(self.wall_loc[None, :],
+                             enc.reshape(n_loc, -1)).reshape(self.n, dw)
+        return meshutil.psum_scatter_mod(_pad_clients(part, self.n_pad),
+                                         self.rank)      # (n_loc, dw)
+
+    def open_(self, c_loc):
+        """OPEN: all-gather every rank's share rows, reconstruct."""
+        c_full = meshutil.all_gather_clients(c_loc, self.rank)[:self.n]
+        return shamir.reconstruct(c_full, self.t, self.proto.lambdas)
+
+    def decode_update(self, key, w_loc, xty_loc, f_loc, sub_idx, dvec):
+        """Phase 4: the owner->holder exchange as an all-to-all, a local
+        decode per holder from the R owners `sub_idx` (decode row `dvec`),
+        then TruncPr with its masked value opened by all-gather."""
+        proto, n_loc, dw, t = self.proto, self.n_loc, self.dw, self.t
+        kf, kt = jrandom.split(key)
+        # the sharing-polynomial draw spans ALL owners (replicated dealer
+        # randomness, the global (T, N) + w_shape draw's bits); each rank
+        # keeps its own owners' columns and deals shares to every holder
+        coeffs = field.random_field(kf, (t, self.n) + self.w_shape, self.dev)
+        coeffs = _pad_clients(coeffs.reshape(t, self.n, dw), self.n_pad,
+                              dim=1)
+        cl = coeffs[:, self.lo:self.lo + n_loc]            # (T, n_loc, dw)
+        f_flat = f_loc.reshape(n_loc, dw)
+        if self.ring_exchange:
+            def blk(j):
+                # holder rows owned by rank j, built just before their hop
+                mix = ops.modmatmul(self.pmat_all[j * n_loc:(j + 1) * n_loc],
+                                    cl.reshape(t, -1))
+                return field.add(mix.reshape(n_loc, n_loc, dw), f_flat[None])
+
+            blocks = meshutil.ring_all_to_all(blk, self.rank)
+            # (src, n_loc holders, n_loc owners, dw) -> owner-major
+            per_holder = blocks.transpose(0, 1).reshape(n_loc, self.n_pad, dw)
+        else:
+            mix = ops.modmatmul(self.pmat_all, cl.reshape(t, -1))
+            mine = field.add(mix.reshape(self.n_pad, n_loc, dw), f_flat[None])
+            per_holder = meshutil.all_to_all_clients(mine, self.rank)
+        # (n_loc holders, n_pad owners, dw): decode locally per holder
+        evals = per_holder.index_select(1, sub_idx)         # (n_loc, R, dw)
+        r = evals.shape[1]
+        xtg = ops.modmatmul_batched(dvec[None, None].expand(n_loc, 1, r),
+                                    evals)
+        grad = field.sub(xtg.reshape((n_loc,) + self.w_shape), xty_loc)
+        scaled = field.mul_scalar(grad, proto.q_eta)
+        delta = truncation.trunc_pr_core(kt, scaled, proto.k1, proto.k2,
+                                         share=self.share_rows,
+                                         open_=self.open_)
+        return field.sub(w_loc, delta)
+
+    def open_w(self, w_loc):
+        """The per-step model opening of a history run."""
+        w = self.open_(w_loc)
+        return quantize.dequantize(w, self.proto.cfg.lw)
+
+
+def _rank_train(rank, handle, key, iters: int, history: bool, overlap: bool,
+                idx, dvs, adv) -> dict:
+    """Run `iters` sharded steps on the rows dealt under `handle`: step t
+    decodes from owners idx[t] with row dvs[t], and the clients adv[t]
+    (of the padded axis, or None) add ADV_OFFSET to their coded gradient.
+    Returns this rank's final model share rows, the history (rank 0's; it
+    is replicated) and the rank's report."""
+    st = rank.state.pop(handle)
+    proto, dev = st["proto"], rank.device
+    step = _RankStep(rank, proto, overlap)
+    lo, n_loc = step.lo, step.n_loc
+    w_loc, coded_x, xty = st["w"], st["coded_x"], st["xty"]
+    idx, dvs = idx.to(dev), dvs.to(dev)
+    if adv is not None:
+        adv = adv[:, lo:lo + n_loc].to(dev)
+    ops.reset_launches()
+    rank.sent_bytes.clear()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    hist = []
+    for t in range(iters):
+        k1_, k2_ = jrandom.split(jrandom.fold_in(key, t))
+        coded_w = step.encode_model(k1_, w_loc)
+        f_loc = proto.local_gradient(coded_x, coded_w)      # LOCAL
+        if adv is not None:
+            adv_b = adv[t].reshape((n_loc,) + (1,) * len(proto.w_shape))
+            f_loc = torch.where(adv_b, field.add(f_loc, ADV_OFFSET), f_loc)
+        w_loc = step.decode_update(k2_, w_loc, xty, f_loc, idx[t], dvs[t])
+        if history:
+            hist.append(step.open_w(w_loc))
+    rank.sync()
+    report = dict(
+        rank=rank.rank, device=str(dev), backend=rank.backend,
+        iters_s=time.perf_counter() - t0, launches=ops.launch_counts(),
+        gemm_paths=ops.gemm_path_counts(),
+        peak_bytes=torch.cuda.max_memory_allocated(dev)
+        if dev.type == "cuda" else None,
+        sent_bytes=dict(rank.sent_bytes))
+    out_hist = None
+    if history and rank.rank == 0:
+        out_hist = torch.stack(hist).cpu() if hist else \
+            torch.zeros((0,) + proto.w_shape, dtype=torch.float32)
+    return dict(w=w_loc.cpu(), hist=out_hist, report=report)

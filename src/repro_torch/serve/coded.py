@@ -29,20 +29,23 @@ Encode path:
 
 The packed `w_cols` layout (d, N*C') turns per-batch scoring for ALL N
 clients and C' model columns into ONE field GEMM (kernels.ops.modmatmul,
-the hand-written CUDA kernel on the card).
+the hand-written CUDA kernel on the card).  `sharded_scorer` splits the
+clients over a core/meshutil ClientMesh instead: each rank scores its own
+clients' shares, and only the opened logits cross ranks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import numpy as np
 import torch
 
-from ..core import field, quantize, shamir
+from ..core import field, meshutil, quantize, shamir
 from ..core.baselines import sync_clock, to_device
 from ..core.labels import Opened, Public, Share
-from ..core.protocol import resolve_device
+from ..core.protocol import _pad_clients, resolve_device
 from ..kernels import ops
 
 
@@ -164,6 +167,63 @@ def score_open(model: CodedModel, queries) -> tuple:
     xq = quantize_queries(model, queries)
     zf = open_logits(score_shares(model, xq), model)
     return zf, quantize.dequantize(zf, model.lz)
+
+
+def sharded_scorer(model: CodedModel, mesh: meshutil.ClientMesh):
+    """A scoring fn with the client axis SPLIT over a ClientMesh: the
+    model's share rows go to the ranks once (zero rows past the last
+    client); per window every rank scores its clients locally, one field
+    GEMM (B, d) @ (d, n_loc*C'), and the window is OPENed by all-gather
+    and reconstruct.  Returns fn(queries float (B, d)) -> Opened field
+    logits (B, C') on the model's device, the bits of score_open's."""
+    n_loc = -(-model.n // mesh.size)
+    # zero rows past the last client: excluded from every reconstruct
+    w_stack = _pad_clients(model.w_stack.cpu(), n_loc * mesh.size)
+    handle = mesh.new_handle()
+    spec = dict(n=model.n, t=model.t, points=model.points, lx=model.lx)
+    mesh.run(_rank_keep_shares, handle, spec,
+             per_rank=[[rows] for rows in w_stack.split(n_loc)])
+
+    def fn(queries):
+        x = np.asarray(queries.cpu() if isinstance(queries, torch.Tensor)
+                       else queries, np.float32)
+        assert x.ndim == 2 and x.shape[1] == model.d, (x.shape, model.d)
+        return mesh.run(_rank_score, handle, x)[0].to(model.device)
+
+    finalizer = weakref.finalize(fn, _drop_shares, mesh, handle)
+    finalizer.atexit = False
+    return fn
+
+
+def _drop_shares(mesh, handle) -> None:
+    if not mesh.closed:
+        mesh.run(_rank_drop, handle)
+
+
+def _rank_keep_shares(rank, handle, spec: dict, w_rows) -> None:
+    """Keep this rank's (n_loc, d, C') share rows in the packed scoring
+    layout (d, n_loc*C') on its device."""
+    n_loc, d, cols = w_rows.shape
+    w_cols = w_rows.to(rank.device).movedim(0, 1).reshape(d, n_loc * cols)
+    rank.state[handle] = dict(spec, w_cols=w_cols.contiguous(), cols=cols,
+                              n_loc=n_loc)
+
+
+def _rank_score(rank, handle, queries):
+    """One window on one rank: quantize, score the local clients, OPEN by
+    all-gather; rank 0 returns the (B, C') field logits."""
+    st = rank.state[handle]
+    xq = quantize.quantize(queries, st["lx"], rank.device)
+    z = ops.modmatmul(xq, st["w_cols"])                  # (B, n_loc*C')
+    z = z.view(xq.shape[0], st["n_loc"], st["cols"]).movedim(1, 0)
+    z_all = meshutil.all_gather_clients(z.contiguous(), rank)[:st["n"]]
+    if rank.rank != 0:
+        return None
+    return shamir.reconstruct(z_all, st["t"], st["points"]).cpu()
+
+
+def _rank_drop(rank, handle) -> None:
+    rank.state.pop(handle, None)
 
 
 def reference_scores(weights, queries, cfg, device="cpu") -> Public:

@@ -2,10 +2,15 @@
 
 Ties the two halves of the serving subsystem together: a CodedModel
 (serve/coded.py -- the encode-once share artifact) and a MicroBatchQueue
-(serve/queue.py -- the batching window).  Engine kinds "eager" and "jit"
-are one path here: every window is quantize, one field GEMM
-(ops.modmatmul) and a reconstruct on the model's device.  The sharded
-engine is not ported.
+(serve/queue.py -- the batching window).  Three engine kinds:
+
+  eager, jit  one path here: every window is quantize, one field GEMM
+              (ops.modmatmul) and a reconstruct on the model's device.
+  sharded     the client axis split over a core/meshutil ClientMesh: each
+              rank scores its own clients' shares, and only the opened
+              logits cross ranks (serve/coded.sharded_scorer).
+
+All three give the bits of the quantized reference scorer.
 
 The model stays secret-shared for the server's whole lifetime; the only
 declassification is `coded.open_logits` on per-query scores.  Predictions
@@ -25,15 +30,11 @@ from . import coded
 from .queue import MicroBatchQueue
 
 #: engine kinds a SecureServer runs (api.serving validates the spec)
-SERVE_KINDS = ("eager", "jit")
+SERVE_KINDS = ("eager", "jit", "sharded")
 
 
 def check_kind(kind: str) -> None:
     """Raise unless `kind` is one of SERVE_KINDS."""
-    if kind == "sharded":
-        raise ValueError(
-            "sharded serving is not ported yet (the multi-device engine, "
-            "ROADMAP Queue A item 3); serve with 'jit' or 'eager'")
     if kind not in SERVE_KINDS:
         raise ValueError(f"engine kind {kind!r} cannot serve (supported: "
                          f"{SERVE_KINDS}); proc:N serving is future work")
@@ -48,16 +49,21 @@ class SecureServer:
     serve_s wall seconds / queries_per_s, plus the one-time encode_s."""
     workload: str             # workload name the model was trained on
     protocol: str             # protocol that produced the TrainResult
-    engine: str               # engine label ("jit", "eager")
-    kind: str                 # engine kind: eager | jit
+    engine: str               # engine label ("jit", "sharded:4", ...)
+    kind: str                 # engine kind: eager | jit | sharded
     batch_size: int           # micro-batch window size
     window_ms: float          # micro-batch window in milliseconds
     model: coded.CodedModel   # the encode-once share artifact
     objective: object         # the workload's SecureObjective
+    mesh: object | None = None          # ClientMesh (sharded only)
     stats: dict = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         check_kind(self.kind)
+        if self.kind == "sharded" and self.mesh is None:
+            raise ValueError("sharded serving needs a mesh")
+        self._sharded = None if self.kind != "sharded" else \
+            coded.sharded_scorer(self.model, self.mesh)
         self.stats.update({"queries": 0, "batches": 0, "padded": 0,
                            "serve_s": 0.0, "queries_per_s": 0.0,
                            "encode_s": self.model.encode_s})
@@ -67,6 +73,8 @@ class SecureServer:
     def _score(self, queries):
         """queries float (B, d) -> Opened field logits (B, C') on the
         model's device."""
+        if self._sharded is not None:
+            return self._sharded(queries)
         xq = coded.quantize_queries(self.model, queries)
         return coded.open_logits(coded.score_shares(self.model, xq),
                                  self.model)

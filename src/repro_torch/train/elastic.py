@@ -6,8 +6,9 @@ shares.  `straggler_budget` reports how many clients a configuration can
 lose per step at zero recovery cost; `validate_budget` turns that budget
 into a hard check that api.fit(..., faults=plan) runs before any compute.
 
-(Re-meshing on restart, the JAX package's replan_shape / replan_mesh, comes
-with the port's multi-device engine.)
+(Re-meshing on restart, the JAX package's replan_shape / replan_mesh, serves
+only its LM trainer's 2-D (data, model) mesh; it comes with the port of the
+LM stack, ROADMAP Queue A item 5.)
 """
 
 from __future__ import annotations

@@ -16,6 +16,7 @@ from repro.api import cli as jcli
 from repro_torch import api
 from repro_torch.api import cli
 from repro_torch.api import engine as engine_mod
+from repro_torch.core import meshutil
 
 from test_torch_protocol import GOLDEN_W
 
@@ -80,6 +81,17 @@ def test_smoke_fit_lands_on_the_golden(fits, capsys):
     np.testing.assert_array_equal(np.asarray(res.weights, np.float64),
                                   np.asarray(GOLDEN_W))
     assert res.triple == ("smoke", "copml", "jit") and res.device == "cpu"
+    assert capsys.readouterr().out.strip() == res.summary()
+
+
+def test_sharded_engine_flag_lands_on_the_golden(fits, capsys):
+    cli.main(["smoke", "--iters", "10", "--engine", "sharded:2",
+              "--device", "cpu"])
+    (res,) = fits
+    meshutil.close_meshes()
+    np.testing.assert_array_equal(np.asarray(res.weights, np.float64),
+                                  np.asarray(GOLDEN_W))
+    assert res.triple == ("smoke", "copml", "sharded:2")
     assert capsys.readouterr().out.strip() == res.summary()
 
 

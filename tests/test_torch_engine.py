@@ -11,6 +11,8 @@ from repro.api import engine as jengine
 from repro.core import objectives as jobjectives
 from repro_torch import api
 from repro_torch.api import engine
+from repro_torch.core import meshutil
+from repro_torch.serve import coded
 
 SPECS = ["jit", "eager", "jit:4", "eager:x", "sharded:0", "sharded:x",
          "proc:3", "nope", "sharded", "sharded:8", "proc", "jit:", ":3",
@@ -75,12 +77,16 @@ def test_fit_refuses_what_the_jax_parse_refuses(spec):
     pytest.param("copml", "sharded:2", id="sharded:2"),
     pytest.param("mpc_baseline", "proc:4", id="mpc_baseline-proc:4")])
 def test_fit_names_the_roadmap_item_of_an_engine_not_ported(protocol, spec):
-    """The sharded engine names its ROADMAP item; proc runs copml only,
-    and another protocol refuses it with the JAX package's exception
-    type, before any compute."""
+    """Every engine of the JAX package is ported: copml runs "sharded:2"
+    with jit's bits; proc runs copml only, and another protocol refuses it
+    with the JAX package's exception type, before any compute."""
     if protocol == "copml":
-        with pytest.raises(ValueError, match="not ported yet"):
-            api.fit("smoke", protocol, spec, iters=1, device="cpu")
+        res = api.fit("smoke", protocol, spec, iters=2, device="cpu")
+        want = api.fit("smoke", protocol, "jit", iters=2, device="cpu")
+        assert res.engine == spec
+        np.testing.assert_array_equal(res.weights, want.weights)
+        np.testing.assert_array_equal(res.history, want.history)
+        meshutil.close_meshes()
         return
     from repro import api as japi
     with pytest.raises(Exception) as want:
@@ -104,6 +110,18 @@ def test_fit_records_the_spec_label(smoke_fit):
 @pytest.mark.parametrize("spec", REFUSED + ["sharded:2", "proc:3"],
                          ids=repr)
 def test_serve_refuses_the_same_specs(smoke_fit, spec):
+    """Serving refuses what the JAX package's parse refuses, and proc;
+    "sharded:2" serves, every window equal to reference_scores."""
+    if spec == "sharded:2":
+        srv = api.serve("smoke", smoke_fit, spec, device="cpu")
+        x = np.asarray(api.get_workload("smoke").eval_set()[0][:9],
+                       np.float32)
+        want = coded.reference_scores(smoke_fit.weights, x,
+                                      api.get_workload("smoke").cfg)
+        assert (srv.engine, srv.kind) == ("sharded:2", "sharded")
+        np.testing.assert_array_equal(srv.score_field(x), want.numpy())
+        meshutil.close_meshes()
+        return
     with pytest.raises((ValueError, TypeError)) as err:
         api.serve("smoke", smoke_fit, spec, device="cpu")
     want = _parse(jengine, spec)

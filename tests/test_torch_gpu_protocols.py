@@ -169,3 +169,64 @@ def test_proc_engine_pinned_subset_on_the_card(cuda):
     np.testing.assert_array_equal(res.state.w_shares.cpu().numpy(),
                                   ref.state.w_shares.cpu().numpy())
     assert res.measured_comm["degraded_steps"] == 0
+
+
+def _card_ranks(res, iters: int, kernel: str) -> None:
+    """Every rank of a sharded fit ran on a card, launched its gradient
+    kernel once a step, and took no GEMM down the tiled path."""
+    for rec in res.timings["ranks"]:
+        assert rec["device"].startswith("cuda")
+        assert rec["launches"][kernel] == iters
+        assert rec["launches"]["fused_step"] == 0
+        assert rec["gemm_paths"]["thin"] > 0
+        assert rec["gemm_paths"]["tiled"] == 0
+        assert rec["peak_bytes"] > 0
+
+
+def test_sharded2_gloo_on_the_card_equals_jit(cuda, chip_smoke):
+    """Two gloo ranks on one card (collectives staged through the host):
+    jit's bits on smoke, and a sharded server equal to reference_scores."""
+    from repro_torch.core import meshutil
+    mesh = meshutil.ClientMesh(2, cuda, backend="gloo")
+    try:
+        assert mesh.devices == [torch.device("cuda", 0)] * 2
+        res = api.fit("smoke", "copml", mesh, key=0, iters=10)
+        assert res.engine == "sharded:2"
+        np.testing.assert_array_equal(np.asarray(res.weights, np.float64),
+                                      np.asarray(chip_smoke.GOLDEN_W))
+        assert chip_smoke.sha(res.state.w_shares.cpu().numpy(),
+                              np.int32) == chip_smoke.GOLDEN_SHARES_SHA
+        assert chip_smoke.sha(res.history, np.float32) == \
+            chip_smoke.GOLDEN_HIST_SHA
+        assert {r["backend"] for r in res.timings["ranks"]} == {"gloo"}
+        _card_ranks(res, 10, "coded_gradient_batched")
+        x = np.asarray(api.get_workload("smoke").eval_set()[0][:33],
+                       np.float32)
+        srv = api.serve("smoke", res, mesh, batch_size=16)
+        want = coded.reference_scores(res.weights, x,
+                                      api.get_workload("smoke").cfg)
+        np.testing.assert_array_equal(srv.score_field(x), want.numpy())
+    finally:
+        mesh.close()
+
+
+def test_sharded1_nccl_on_the_card(cuda, chip_smoke):
+    from repro_torch.core import meshutil
+    mesh = meshutil.ClientMesh(1, cuda, backend="nccl")
+    try:
+        res = api.fit("smoke", "copml", mesh, key=0, iters=10)
+        np.testing.assert_array_equal(np.asarray(res.weights, np.float64),
+                                      np.asarray(chip_smoke.GOLDEN_W))
+        assert chip_smoke.sha(res.state.w_shares.cpu().numpy(),
+                              np.int32) == chip_smoke.GOLDEN_SHARES_SHA
+        assert [r["backend"] for r in res.timings["ranks"]] == ["nccl"]
+        _card_ranks(res, 10, "coded_gradient_batched")
+    finally:
+        mesh.close()
+
+
+def test_nccl_with_more_ranks_than_cards_raises(cuda):
+    from repro_torch.core import meshutil
+    with pytest.raises(ValueError, match="NCCL refuses two ranks"):
+        meshutil.ClientMesh(torch.cuda.device_count() + 1, cuda,
+                            backend="nccl")

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch import api
-from repro_torch.core import protocol
+from repro_torch.core import meshutil, protocol
 from repro_torch.kernels import build, ops
 from repro_torch.launch.runtime import session
 
@@ -51,6 +51,12 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
     monkeypatch.setattr(session.subprocess, "Popen", spawn)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         api.fit("smoke", "copml", "proc:4", iters=1)
+    monkeypatch.setattr(meshutil.torch.multiprocessing, "start_processes",
+                        spawn)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        api.fit("smoke", "copml", "sharded:4", iters=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        meshutil.client_mesh(2)
     wl = api.get_workload("smoke")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         protocol.Copml(wl.cfg, wl.m, wl.d)

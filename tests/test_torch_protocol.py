@@ -18,7 +18,7 @@ import torch
 from repro.api import workloads as jworkloads
 from repro.core.protocol import Copml as JCopml
 from repro_torch import api
-from repro_torch.core import protocol
+from repro_torch.core import meshutil, protocol
 from repro_torch.core import random as jrandom
 
 GOLDEN_W = [0.25, -0.375, 0.375, 0.5, -0.125, 0.25, 0.875, 1.25, -0.5,
@@ -131,8 +131,13 @@ def test_fit_options():
                                   np.asarray(GOLDEN_W))
     with pytest.raises(KeyError, match="unknown protocol"):
         api.fit("smoke", "quantum", device="cpu")
-    with pytest.raises(ValueError, match="engine.*not ported"):
-        api.fit("smoke", "copml", "sharded", device="cpu")
+    # a bare "sharded" spec on the CPU is one rank: the same bits
+    res = api.fit("smoke", "copml", "sharded", key=key, iters=10,
+                  history=False, device="cpu")
+    assert res.engine == "sharded"
+    np.testing.assert_array_equal(np.asarray(res.weights, np.float64),
+                                  np.asarray(GOLDEN_W))
+    meshutil.close_meshes()
 
 
 def test_scoring_helpers_match_jax():

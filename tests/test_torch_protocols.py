@@ -23,7 +23,7 @@ from repro import api as japi
 from repro.core import cost_model as jcost
 from repro.core import secure_agg as jsa
 from repro_torch import api
-from repro_torch.core import cost_model, secure_agg
+from repro_torch.core import cost_model, meshutil, secure_agg
 from repro_torch.core import random as jrandom
 
 REPO = Path(__file__).resolve().parent.parent
@@ -242,8 +242,14 @@ def test_protocol_registry_and_validation():
         api.fit("smoke", "quantum", "jit", device="cpu")
     with pytest.raises(ValueError, match="supports engines"):
         api.fit("smoke", "float", "sharded", device="cpu")
-    with pytest.raises(ValueError, match="item 3"):
-        api.fit("smoke", "copml", "sharded:4", device="cpu")
+    # copml runs every engine of the JAX package: sharded:4 gives jit's
+    # bits
+    got = api.fit("smoke", "copml", "sharded:4", iters=2, device="cpu")
+    want = api.fit("smoke", "copml", "jit", iters=2, device="cpu")
+    np.testing.assert_array_equal(got.weights, want.weights)
+    np.testing.assert_array_equal(got.state.w_shares.numpy(),
+                                  want.state.w_shares.numpy())
+    meshutil.close_meshes()
     with pytest.raises(ValueError, match="supports engines"):
         api.fit("smoke", "float", "proc:2", device="cpu")
     with pytest.raises(ValueError, match="straggler-subset"):

@@ -17,7 +17,7 @@ import pytest
 
 from repro.api import engine as jengine
 from repro_torch import api
-from repro_torch.core import cost_model
+from repro_torch.core import cost_model, meshutil
 from repro_torch.launch.runtime import worker
 
 from test_torch_protocol import (GOLDEN_HIST_SHA, GOLDEN_SHARES_SHA,
@@ -138,17 +138,18 @@ def test_proc_spec_parsing_and_validation():
 
 def test_run_copml_engine_dispatches_eager_and_jit():
     """The one dispatch from a spec to a Copml engine: eager and jit run
-    Copml.train; proc and sharded are refused."""
+    Copml.train, sharded Copml._train_sharded, all on the smoke goldens;
+    proc is refused (api.fit runs it through run_copml_proc)."""
     wl = api.get_workload("smoke")
     proto = api.protocols.driver(wl, "cpu")
     cx, cy = wl.client_data()
-    for spec in ("eager", api.JIT):
+    for spec in ("eager", api.JIT, "sharded:2"):
         state, w, hist = api.run_copml_engine(proto, spec, 0, cx, cy, 10,
                                               history=True)
         np.testing.assert_array_equal(np.asarray(w, np.float64),
                                       np.asarray(GOLDEN_W))
         assert _sha(hist.numpy(), np.float32) == GOLDEN_HIST_SHA
-    with pytest.raises(ValueError, match="Queue A item 3"):
-        api.run_copml_engine(proto, "sharded:2", 0, cx, cy, 1)
+        assert _sha(state.w_shares.numpy(), np.int32) == GOLDEN_SHARES_SHA
+    meshutil.close_meshes()
     with pytest.raises(ValueError, match="run_copml_proc"):
         api.run_copml_engine(proto, "proc:4", 0, cx, cy, 1)

@@ -22,7 +22,7 @@ from repro.core.protocol import CopmlState as JCopmlState
 from repro.serve import coded as jcoded
 from repro.serve.server import SecureServer as JSecureServer
 from repro_torch import api
-from repro_torch.core import quantize, shamir
+from repro_torch.core import meshutil, quantize, shamir
 from repro_torch.core import random as jrandom
 from repro_torch.serve import coded
 from repro_torch.serve.queue import MicroBatchQueue
@@ -65,7 +65,13 @@ def _jax_score_field(result, wl, queries, key):
         return srv.score_field(queries), model
 
 
-@pytest.mark.parametrize("engine", ["eager", "jit"])
+@pytest.fixture(scope="module", autouse=True)
+def _close_meshes():
+    yield
+    meshutil.close_meshes()
+
+
+@pytest.mark.parametrize("engine", ["eager", "jit", "sharded:1"])
 @pytest.mark.parametrize("workload,fixture", [
     ("smoke", "smoke_result"),            # (d,) vector model
     ("mnist10_like", "mnist_result"),     # (d, C) matrix model
@@ -178,14 +184,17 @@ def test_serve_queue_path_matches_direct_predict(smoke_result, mnist_result):
 def test_serve_argument_checks(smoke_result, mnist_result):
     with pytest.raises(ValueError, match="future work"):
         api.serve("smoke", smoke_result, "proc:4", device="cpu")
-    with pytest.raises(ValueError, match="item 3"):
-        api.serve("smoke", smoke_result, "sharded:1", device="cpu")
+    srv = api.serve("smoke", smoke_result, "sharded:1", device="cpu")
+    assert (srv.engine, srv.kind, srv.mesh.size) == ("sharded:1", "sharded",
+                                                     1)
     with pytest.raises(ValueError, match="shape"):
         api.serve("mnist10_like", smoke_result, device="cpu")
     relabeled = dataclasses.replace(mnist_result, workload="smoke")
     with pytest.raises(ValueError, match="trained on"):
         api.serve("mnist10_like", relabeled, device="cpu")
-    assert api.SERVE_ENGINES == ("eager", "jit")
+    assert api.SERVE_ENGINES == ("eager", "jit", "sharded")
+    with pytest.raises(ValueError, match="needs a mesh"):
+        dataclasses.replace(srv, kind="sharded", mesh=None)
     with jax.threefry_partitionable(False):
         key = np.asarray(jax.random.PRNGKey(3))
     a = api.serve("smoke", smoke_result, key=key, device="cpu").model
