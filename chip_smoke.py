@@ -116,6 +116,23 @@ Phases (a failed phase fails the run; no failure is caught):
               plan), mnist10_like on sharded:4 (coded_gradient_matrix in
               the ranks) and serving the full-width result on sharded:4 at
               batch 1, 32 and 128 (every window equal to reference_scores)
+ 11. launch   the launch layer, each CLI as a subprocess:
+              `python -m repro_torch.launch.copml_dist` at cifar10_case2's
+              width (N=50, m=9019, d=3073, K=10, T=7) over 4 ranks, 3
+              iterations: bit-exact with jit, then under a seeded fault
+              plan (one straggler of headroom, R = 49), then --bench;
+              `python -m repro_torch.launch.dryrun --shape all --mesh both
+              --execute-ranks 4`: every cell's model at 256 / 512 ranks
+              and one real step at 4 ranks, each rank's bytes by
+              collective equal to the closed form, smoke and train_4k
+              bit-equal to the single-device step, each cell's rank peak
+              GiB and roofline terms logged; `python -m
+              repro_torch.launch.train` at cifar10_case2, its summary line
+              equal to an in-process api.fit's (wall time aside); and
+              launch_counter.count_steps over two jit steps (field kernels
+              a step, priced; the medians of IDLE_SAMPLES such samples'
+              device launches and idle share agreeing with the medians of
+              as many profile_steps samples over two steps, taken in turns)
 
 Output: one {"kernels": [...]} JSON line (the seven TPU kernels' ports,
 then the row-dot and split-K paths of modmatmul as entries of their own,
@@ -130,6 +147,7 @@ the ptxas report, a profile of two steps) go to chip_smoke.json in OUT_DIR.
   python3 chip_smoke.py            # every phase (needs one CUDA card)
   python3 chip_smoke.py --quick    # build, ragged kernel checks, goldens
       # (phases 1-3)
+  python3 chip_smoke.py --launch-only   # build, then phase 11 alone
   python3 chip_smoke.py --compare OTHER/src   # the redesigned kernels of
       # another checkout (e.g. the parent commit's) and of this one, timed
       # in turns other, this, this, other; writes chiprun_out/compare.json
@@ -142,6 +160,7 @@ import collections
 import hashlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -201,9 +220,6 @@ AGG_SHAS = (
 FULL_WORKLOAD = "cifar10_case2"
 FULL_ITERS = 5
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
-INT32_OPS_PER_S = 67e12        # H100 SXM 32-bit CUDA-core rate (fp32 table)
-
 # the kernels each full-width path launches (every one at least once)
 FUSED_PATH = ("modmatmul", "modmatmul_batched", "fused_step")
 SILOED_PATH = ("modmatmul", "modmatmul_batched", "coded_gradient_batched")
@@ -221,6 +237,20 @@ SHARDED_ENGINE = f"sharded:{SHARDED_N}"
 # rank 3's frames arrive 0.35 s late everywhere; the others decode after
 # 0.05 s without its blocks
 STRAGGLER_NET = dict(links=((3, None, 0.35),), decode_timeout_s=0.05)
+# phase 11: copml_dist at cifar10_case2's width over 4 ranks; the fault
+# plan (p = 0.02, seed 1) leaves 50, 49, 50 of the 50 clients available
+# (R = 49): one straggler at step 1, and a different decode subset there
+LAUNCH_DIST = ("--devices", "4", "--clients", "50", "--m", "9019", "--d",
+               "3073", "--iters", "3")
+LAUNCH_FAULTS = ("--straggle-p", "0.02", "--fault-seed", "1")
+LAUNCH_CHURN = "available 49..50"
+DRYRUN_SHAPES = ("smoke", "train_4k", "prefill_32k", "decode_32k")
+DRYRUN_RANKS = 4
+# launch_counter against profile_steps: samples of two steps each, taken in
+# turns.  A two-step sample's idle share is ~40 ms of host wall time, so
+# one pause of the shared host moves it by more than the band; the medians
+# of the samples are compared.
+IDLE_SAMPLES = 5
 
 TPU_KERNEL = {
     "modmatmul": "src/repro/kernels/modmatmul.py:70",
@@ -362,9 +392,9 @@ class Checker:
 
 
 def bound(bytes_moved: float, ops: float) -> tuple:
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """launch/roofline.bound: (least ms, what bounds it) on an H100."""
+    from repro_torch.launch.roofline import bound as roofline_bound
+    return roofline_bound(bytes_moved, ops)
 
 
 def device_ms(torch, fn, reps: int):
@@ -777,30 +807,16 @@ def phase_kernels(ck: Checker, quick: bool) -> dict:
 
 def profile_steps(torch, step, state) -> tuple:
     """Two more steps `state = step(key, state)` (e.g. a protocol's
-    iteration) from `state` under torch.profiler: wall and device ms per
-    step, the device's idle share and its kernels per step, and the table
-    of device time by kernel."""
-    from repro_torch.core import random as jrandom
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for t in range(2):
-            state = step(jrandom.fold_in(jrandom.PRNGKey(1), t), state)
-        torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    table = events.table(sort_by="cuda_time_total", row_limit=25)
-    # device-side events only (kernels, memcpys): host ops also report the
-    # device time of the kernels they launched
-    on_device = [e for e in events
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in on_device) / 1e3
-    kernel_launches = sum(e.count for e in on_device)
-    return dict(wall_ms_per_step=prof_wall_ms / 2,
-                device_ms_per_step=device_ms / 2,
-                idle_share=1.0 - device_ms / prof_wall_ms,
-                device_kernels_per_step=kernel_launches / 2), table
+    iteration) from `state` under torch.profiler
+    (launch/launch_counter.profile_steps): wall and device ms per step, the
+    device's idle share and its kernels per step, and the table of device
+    time by kernel."""
+    from repro_torch.launch import launch_counter
+    summary, table, _ = launch_counter.profile_steps(step, state)
+    summary = {k: summary[k] for k in (
+        "wall_ms_per_step", "device_ms_per_step", "idle_share",
+        "device_kernels_per_step")}
+    return summary, table
 
 
 def fused_operands(ck: Checker, n, m, d, c, degree) -> dict:
@@ -814,60 +830,10 @@ def fused_operands(ck: Checker, n, m, d, c, degree) -> dict:
                        inv2k1=field.host_inv(1 << 18), k1=18)}
 
 
-class ShapeLog:
-    """Counts every field-GEMM call of a fit by (phase, op, shapes,
-    strides); the phase is "setup" inside `owner`.setup (Copml's by
-    default; None: no setup phase) and "step" after."""
-
-    OPS = ("modmatmul", "modmatmul_batched")
-
-    def __init__(self, owner="copml"):
-        self.calls: collections.Counter = collections.Counter()
-        self.phase = "step"
-        self.owner = owner
-
-    def __enter__(self):
-        from repro_torch.core import baselines, protocol
-        from repro_torch.kernels import ops
-        self._ops = ops
-        self._cls = {"copml": protocol.Copml,
-                     "mpc_baseline": baselines.MpcBaseline,
-                     None: None}[self.owner]
-        self._real = {name: getattr(ops, name) for name in self.OPS}
-
-        def spy(name):
-            def call(a, b):
-                self.calls[(self.phase, name, tuple(a.shape), a.stride(),
-                            tuple(b.shape), b.stride())] += 1
-                return self._real[name](a, b)
-            return call
-
-        for name in self.OPS:
-            setattr(ops, name, spy(name))
-        if self._cls is not None:
-            self._setup = self._cls.setup
-
-            def setup(proto, *args, **kw):
-                self.phase = "setup"
-                try:
-                    return self._setup(proto, *args, **kw)
-                finally:
-                    self.phase = "step"
-
-            self._cls.setup = setup
-        return self
-
-    def __exit__(self, *exc):
-        for name in self.OPS:
-            setattr(self._ops, name, self._real[name])
-        if self._cls is not None:
-            self._cls.setup = self._setup
-
-
 GEMM_TIMES: dict = {}          # (op, shapes, strides) -> (device ms, bound)
 
 
-def gemm_table(ck: Checker, shape_log: ShapeLog, iters: int) -> list:
+def gemm_table(ck: Checker, shape_log, iters: int) -> list:
     """Every GEMM shape of a fit with its launches (setup; per step scaled
     to a 50-iteration fit), path, device time, bound and the time lost
     against the bound in a 50-iteration fit; each shape is checked against
@@ -875,15 +841,12 @@ def gemm_table(ck: Checker, shape_log: ShapeLog, iters: int) -> list:
     torch = ck.torch
     from repro_torch.kernels import modmatmul as mm
     from repro_torch.kernels import ref
-    from repro_torch.kernels.plan import gemm_path
+    from repro_torch.launch import launch_counter, roofline
     rows = []
     for key, count in sorted(shape_log.calls.items(), key=str):
         phase, name, ash, ast, bsh, bst = key
-        if name == "modmatmul":
-            bsz, (m_, k_), n_ = 1, ash, bsh[1]
-        else:
-            (bsz, m_, k_), n_ = ash, bsh[2]
-        path = gemm_path(m_, k_, bst[-1], n_, ast[-2], ast[-1])
+        k_ = ash[-1]
+        path = launch_counter.path_of_key(ash, ast, bsh, bst)
         if key[1:] not in GEMM_TIMES:
             a, abase = strided_field(ck, ash, ast)
             b, bbase = strided_field(ck, bsh, bst)
@@ -897,8 +860,8 @@ def gemm_table(ck: Checker, shape_log: ShapeLog, iters: int) -> list:
             # only where the profiler failed: CUDA events, wrapper included
             events = ck.time_ms(lambda: fn(a, b), reps) if dev is None \
                 else None
-            bb, by = bound(4.0 * (abase.numel() + bbase.numel() + out.numel()),
-                           2.0 * bsz * m_ * k_ * n_)
+            ops_, bytes_ = roofline.gemm_work(ash, ast, bsh, bst)
+            bb, by = bound(bytes_, ops_)
             GEMM_TIMES[key[1:]] = (dev, events, bb, by)
             del a, b, abase, bbase, out
             torch.cuda.empty_cache()
@@ -960,6 +923,7 @@ def phase_golden(np) -> None:
 
 def phase_full(ck: Checker, np) -> tuple:
     """cifar10_case2 at full width; returns (launch counts, summary)."""
+    from repro_torch.launch.launch_counter import LaunchLog
     torch = ck.torch
     from repro_torch import api
     from repro_torch.kernels import fused_step as fs
@@ -979,7 +943,7 @@ def phase_full(ck: Checker, np) -> tuple:
     wl.client_data()                       # dataset build is set-up
     iters = 5
     ops.reset_launches()
-    with ShapeLog() as shapes:
+    with LaunchLog() as shapes:
         t0 = time.perf_counter()
         res = api.fit(wl, "copml", "jit", iters=iters, device="cuda")
         wall = time.perf_counter() - t0
@@ -1385,6 +1349,7 @@ def phase_protocols(ck: Checker, np, fused_summary: dict) -> tuple:
     steps, accuracy; the GEMMs of mpc_baseline and secure_agg by shape and
     path (the baseline's Z = X W on the row-dot kernel, none on the tiled
     one).  Returns ({protocol: summary}, {protocol: counts}, the float result)."""
+    from repro_torch.launch.launch_counter import LaunchLog
     torch = ck.torch
     from repro_torch import api
     from repro_torch.core import cost_model
@@ -1393,7 +1358,7 @@ def phase_protocols(ck: Checker, np, fused_summary: dict) -> tuple:
     for protocol, path in PROTOCOL_PATHS.items():
         shapes = None
         if protocol in ("mpc_baseline", "secure_agg"):
-            shapes = ShapeLog(protocol if protocol == "mpc_baseline"
+            shapes = LaunchLog(protocol if protocol == "mpc_baseline"
                               else None)
         res, counts, peak = fit_protocol(ck, protocol, shape_log=shapes)
         for name in path:
@@ -1464,6 +1429,7 @@ def phase_serve(ck: Checker, np, copml_res, float_res) -> tuple:
     the card and on the CPU) bit for bit; queries/s, encode s, and the
     device time of one window.  The float result (fallback encode) at the
     largest batch.  Returns (summary, launch counts of the serve runs)."""
+    from repro_torch.launch.launch_counter import LaunchLog
     torch = ck.torch
     from repro_torch import api
     from repro_torch.kernels import ops
@@ -1486,7 +1452,7 @@ def phase_serve(ck: Checker, np, copml_res, float_res) -> tuple:
             got = np.concatenate([srv.score_field(q[i:i + b])
                                   for i in range(0, len(q), b)])
             np.testing.assert_array_equal(got, want, err_msg=f"{label} {b}")
-            shapes = ShapeLog(None)
+            shapes = LaunchLog(None)
             ops.reset_launches()
             with shapes:
                 preds, stats = srv.serve(q)
@@ -1890,6 +1856,165 @@ def phase_sharded(ck: Checker, np, fused) -> tuple:
     return summary, runs
 
 
+def run_module(module: str, args, what: str) -> str:
+    """`python -m module args` from the repo's src (check=True: a failure
+    fails the phase); logs and returns its standard output."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-m", module, *args], env=env,
+                         cwd=REPO, capture_output=True, text=True,
+                         check=True).stdout
+    for line in out.splitlines():
+        log(f"launch: {what}: {line}")
+    return out
+
+
+def without_time(summary: str) -> str:
+    """A TrainResult summary line without its wall time."""
+    import re
+    return re.sub(r"iters in [0-9.]+s", "iters in <s>", summary)
+
+
+def phase_launch(ck: Checker, np) -> tuple:
+    """The launch layer: copml_dist's parity (plain and under a seeded
+    fault plan) and its bench, the dry run of every copml-logreg cell at
+    pod and multipod (each executed at DRYRUN_RANKS ranks), launch.train
+    against an in-process api.fit, and launch_counter over two jit steps
+    against profile_steps.  Returns (summary, launch counts of the
+    in-process steps)."""
+    torch = ck.torch
+    from repro_torch import api
+    from repro_torch.core import meshutil
+    from repro_torch.kernels import ops
+    from repro_torch.launch import launch_counter, roofline
+    t_phase = time.perf_counter()
+    meshutil.close_meshes()                # phase 10's ranks
+    torch.cuda.empty_cache()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"launch: card {sms} SMs, max / current SM clock {smi}; "
+        f"roofline.py prices {roofline.SMS} SMs at "
+        f"{roofline.BOOST_CLOCK_HZ / 1e6:.0f} MHz: "
+        f"{roofline.FIELD_OPS_PER_S:.4g} field ops/s")
+    summary = dict(card_sms=sms, card_clocks=smi)
+
+    # (a) copml_dist at full width: parity, under the fault plan, bench
+    dist = "repro_torch.launch.copml_dist"
+    out = run_module(dist, LAUNCH_DIST, "copml_dist")
+    assert "bit-exact: sharded == jit" in out, out
+    out = run_module(dist, LAUNCH_DIST + LAUNCH_FAULTS, "copml_dist faults")
+    assert "bit-exact: sharded == jit" in out and LAUNCH_CHURN in out, out
+    out = run_module(dist, LAUNCH_DIST + ("--bench",), "copml_dist bench")
+    rows = [r.split(",") for r in out.splitlines() if r.startswith(
+        "copml_dist/")]
+    assert len(rows) == 2, out
+    summary["bench"] = {r[0]: dict(best_us=float(r[1]), ratio=r[2])
+                        for r in rows}
+
+    # (b) the dry run: every cell modelled and executed
+    out_dir = OUT_DIR / "dryrun"
+    out = run_module("repro_torch.launch.dryrun", (
+        "--arch", "copml-logreg", "--shape", "all", "--mesh", "both",
+        "--execute-ranks", str(DRYRUN_RANKS), "--out", str(out_dir)),
+        "dryrun")
+    assert out.splitlines()[-1] == "dry-run: all requested cells compiled"
+    summary["dryrun"] = {}
+    for mesh_name in ("pod", "multipod"):
+        skip = json.loads((out_dir / f"copml-logreg_long_500k_{mesh_name}"
+                           ".json").read_text())
+        assert skip["status"].startswith("skipped"), skip
+        for shape in DRYRUN_SHAPES:
+            rec = json.loads((out_dir / f"copml-logreg_{shape}_{mesh_name}"
+                              ".json").read_text())
+            ex = rec["executed"]
+            assert rec["status"] == "model" and ex["ranks"] == DRYRUN_RANKS
+            assert ex["device"].startswith("cuda"), ex["device"]
+            for sent in ex["sent_bytes"]:
+                assert {k: v for k, v in sent.items() if v} == \
+                    ex["sent_bytes_closed_form"], (shape, mesh_name, sent)
+            if shape in ("smoke", "train_4k"):
+                assert ex["bit_equal_single_device"], (shape, mesh_name)
+            terms = ("compute_s", "memory_s", "collective_s", "dominant")
+            summary["dryrun"][f"{shape} {mesh_name}"] = dict(
+                n=rec["n_clients"], k=rec["K"], t=rec["T"],
+                model={k: rec[k] for k in terms},
+                model_args_gib=rec["bytes_per_device"]["argument"] / 2 ** 30,
+                model_sent=rec["sent_bytes_per_rank"],
+                executed={k: ex["roofline"][k] for k in terms},
+                rank_peak_gib=max(ex["peak_bytes"]) / 2 ** 30,
+                rank_state_gib=ex["state_bytes_per_rank"][0] / 2 ** 30,
+                step_s=ex["step_s"], make_rows_s=ex["make_rows_s"],
+                sent=ex["sent_bytes_closed_form"],
+                wall_s=rec["wall_s"])
+            log(f"launch: dryrun {shape} {mesh_name}: "
+                f"{summary['dryrun'][f'{shape} {mesh_name}']}")
+
+    # (c) launch.train against an in-process fit of the same triple
+    out = run_module("repro_torch.launch.train", (
+        "--arch", "copml-logreg", "--workload", FULL_WORKLOAD, "--iters",
+        str(FULL_ITERS)), "train")
+    res = api.fit(FULL_WORKLOAD, "copml", "jit", iters=FULL_ITERS,
+                  device="cuda")
+    assert without_time(out.splitlines()[-1]) == \
+        without_time(res.summary()), (out, res.summary())
+
+    # (d) launch_counter over two jit steps, and profile_steps beside it
+    wl = api.get_workload(FULL_WORKLOAD)
+    proto = api.protocols.driver(wl, torch.device("cuda"))
+    ops.reset_launches()
+    cnt = launch_counter.count_steps(proto.iteration, res.state, 2)
+    counts = run_counts()
+    for name in FUSED_PATH:
+        assert counts[name] > 0, f"{name} was not launched by the steps"
+        assert counts[name] == cnt["launches"][name] * 2, (name, counts,
+                                                            cnt["launches"])
+    samples = {"count_steps": [cnt], "profile_steps": []}
+    for i in range(2 * IDLE_SAMPLES - 1):      # prof, cnt, cnt, prof, ...
+        which = "profile_steps" if i % 4 in (0, 3) else "count_steps"
+        samples[which].append(
+            launch_counter.count_steps(proto.iteration, res.state, 2)
+            if which == "count_steps"
+            else profile_steps(torch, proto.iteration, res.state)[0])
+    keys = ("wall_ms_per_step", "device_ms_per_step", "idle_share",
+            "device_kernels_per_step")
+    samples = {w: [{k: s[k] for k in keys} for s in got]
+               for w, got in samples.items()}
+    med = {w: {k: statistics.median(s[k] for s in got) for k in keys}
+           for w, got in samples.items()}
+    counted, prof = med["count_steps"], med["profile_steps"]
+    assert abs(counted["device_kernels_per_step"]
+               - prof["device_kernels_per_step"]) \
+        <= 0.02 * prof["device_kernels_per_step"], (med, samples)
+    assert abs(counted["idle_share"] - prof["idle_share"]) <= 0.05, \
+        (med, samples)
+    cfg = wl.cfg
+    rf = cnt.roofline(f"copml/{FULL_WORKLOAD} jit step",
+                      model_ops=roofline.copml_model_ops(
+                          cfg.n_clients, wl.m, wl.d, cfg.k, cfg.t,
+                          cfg.recovery_threshold))
+    summary["launch_counter"] = dict(
+        counted, **{k: cnt[k] for k in ("launches", "ops", "bytes")},
+        rows=cnt["rows"], roofline=rf.to_dict(), profile_steps=prof,
+        samples=samples)
+    log(f"launch: launch_counter 2 jit steps: field kernels a step "
+        f"{ {k: v for k, v in cnt['launches'].items() if v} }; medians of "
+        f"{IDLE_SAMPLES} samples: device "
+        f"{counted['device_kernels_per_step']:.1f} launches and "
+        f"{counted['device_ms_per_step']:.3f} ms a step, idle "
+        f"{counted['idle_share']:.3f} (profile_steps: "
+        f"{prof['device_kernels_per_step']:.1f}, "
+        f"{prof['device_ms_per_step']:.3f} ms, idle "
+        f"{prof['idle_share']:.3f}); idle shares "
+        f"{ {w: [round(x['idle_share'], 3) for x in got]
+              for w, got in samples.items()} }; roofline {rf.to_dict()}")
+    res.state = None
+    summary["seconds"] = time.perf_counter() - t_phase
+    log(f"launch: phase 11 took {summary['seconds']:.1f} s")
+    return summary, counts
+
+
 def set_schedule(mode: str) -> None:
     """REPRO_FUSED_STEP for the next fit ("0" siloed, "1" fused)."""
     os.environ["REPRO_FUSED_STEP"] = mode
@@ -1985,10 +2110,11 @@ def phase_siloed(ck: Checker, np, fused) -> tuple:
     """FULL_WORKLOAD at full width on the siloed schedule, then
     mnist10_like (the matrix kernel's path); returns (counts per kernel
     from the path that runs it, summaries)."""
+    from repro_torch.launch.launch_counter import LaunchLog
     from repro_torch import api
     from repro_torch.kernels import coded_gradient as cg
     from repro_torch.kernels import ref
-    shapes = ShapeLog()
+    shapes = LaunchLog()
     res, counts, calls, peak = fit_full(
         ck, "0", record=("coded_gradient_batched",), shape_log=shapes)
     assert counts["coded_gradient_batched"] == FULL_ITERS, counts
@@ -2048,6 +2174,7 @@ def phase_faulty(ck: Checker, np, fused) -> dict:
     """cifar10_case2 at full width under a fault plan on both schedules:
     a straggler at step 1 and an adversary from step 3, which leaves
     exactly R = 49 of the 50 clients available."""
+    from repro_torch.launch.launch_counter import LaunchLog
     from repro_torch import api
     wl = api.get_workload(FULL_WORKLOAD)
     plan = api.FaultPlan.from_schedule(wl.n_clients, FULL_ITERS,
@@ -2057,7 +2184,7 @@ def phase_faulty(ck: Checker, np, fused) -> dict:
     log(f"faulty: {plan.describe()}, headroom per step {headroom.tolist()}")
     out = {}
     for mode in ("1", "0"):
-        shapes = ShapeLog()
+        shapes = LaunchLog()
         res, counts, calls, peak = fit_full(
             ck, mode, record=("fused_step",), faults=plan, shape_log=shapes)
         same_model(np, res, fused, f"faulty (schedule {mode}) vs fault-free")
@@ -2193,6 +2320,9 @@ def main() -> int:
                         help="time the redesigned kernels of PARENT_SRC "
                              "(another checkout's src/) and of this one in "
                              "turns, and stop")
+    parser.add_argument("--launch-only", action="store_true",
+                        help="build, then phase 11 (the launch layer) "
+                             "alone, into chiprun_out/chip_smoke_launch.json")
     parser.add_argument("--time-only", metavar="SRC", help=argparse.SUPPRESS)
     args = parser.parse_args()
     import numpy as np
@@ -2225,6 +2355,12 @@ def main() -> int:
 
     set_schedule("1")
     ck = Checker(torch, np, P)
+    if args.launch_only:
+        launch, _ = phase_launch(ck, np)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_launch.json").write_text(
+            json.dumps(launch, indent=1))
+        return 0
     rows = phase_kernels(ck, args.quick)
     rows.update(phase_kernels_siloed(ck, args.quick))
     rows.update(phase_kernels_protocols(ck, args.quick))
@@ -2250,6 +2386,9 @@ def main() -> int:
         report["sharded"], sharded_runs = phase_sharded(ck, np, fused)
         proc_runs.update(sharded_runs)
         fused.state = None                 # frees its device memory
+        report["launch"], launch_counts = phase_launch(ck, np)
+        proc_runs["launch_counter 2 jit steps cifar10_case2"] = \
+            launch_counts
         for name in FUSED_PATH:
             counts[name] = fused_counts[name]
             path[name] = "fused cifar10_case2"

@@ -109,6 +109,12 @@ def fused_mode_from_env() -> str:
     return mode
 
 
+def sharded_overlap_from_env() -> bool:
+    """REPRO_SHARDED_OVERLAP: "1" (default) streams the sharded step's two
+    EXCHANGE collectives around rings; "0" takes the monolithic ones."""
+    return os.environ.get("REPRO_SHARDED_OVERLAP", "1") != "0"
+
+
 def case1_params(n: int, r: int = 1) -> tuple:
     """Paper Case 1 (max parallelization): K = floor((N-1)/(2r+1)), T = 1."""
     return max(1, (n - 1) // (2 * r + 1)), 1
@@ -605,7 +611,7 @@ class Copml:
             if adv is not None:
                 # replicated (iters, n_pad) mask; padded clients honest
                 adv = _pad_clients(adv, n_pad, dim=1)
-        overlap = os.environ.get("REPRO_SHARDED_OVERLAP", "1") != "0"
+        overlap = sharded_overlap_from_env()
         out = mesh.run(_rank_train, handle, jrandom.as_key(key).numpy(),
                        int(iters), bool(history), overlap, idx, dvs, adv)
         w_pad = torch.cat([o["w"] for o in out]).to(self.device)

@@ -1,0 +1,180 @@
+"""Roofline terms of a COPML step on NVIDIA H100 (SXM) cards.
+
+Per (shape x mesh):
+  compute term    = ops / (chips * FIELD_OPS_PER_S)
+  memory term     = bytes / (chips * HBM_BYTES_PER_S)
+  collective term = collective bytes a device sends / the link's rate
+
+Two counts are kept apart.  Executed work (`ops`, `bytes`) is summed over
+the field kernels' launches (launch/launch_counter.py), each launch priced
+from its shapes by `gemm_work`, `gradient_work`, `fused_work` and
+`poly_work`: every input read once, every output written once, 2
+operations a field multiply-add.  Useful work (`model_ops`) comes from the
+protocol's shapes alone (`copml_model_ops`), so it reads the same whatever
+kernel implements the step.
+
+The elementwise torch ops of a step (the threefry emulation, field adds)
+are not field-kernel launches and are not counted.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+# --- the card: NVIDIA H100 SXM5 80 GB --------------------------------------
+#: HBM3 bandwidth (NVIDIA H100 Tensor Core GPU datasheet, SXM5: 3.35 TB/s)
+HBM_BYTES_PER_S = 3.35e12
+#: streaming multiprocessors (NVIDIA H100 Tensor Core GPU Architecture
+#: whitepaper, H100 SXM5: 132 SMs)
+SMS = 132
+#: INT32 lanes a SM issues a clock (the same whitepaper: 16 INT32 units in
+#: each of the SM's 4 partitions; FP32 has 32 there, i.e. twice the lanes)
+INT32_LANES_PER_SM = 64
+#: boost clock (`nvidia-smi --query-gpu=clocks.max.sm` on an H100 SXM5:
+#: 1980 MHz; chip_smoke.py logs it beside every run)
+BOOST_CLOCK_HZ = 1.98e9
+#: 32-bit integer instructions a second, one a lane a clock: 16.73e12
+INT32_INST_PER_S = SMS * INT32_LANES_PER_SM * BOOST_CLOCK_HZ
+#: how a field multiply-add is priced: the kernels accumulate x*y (x, y <
+#: p < 2^26) into a 64-bit sum with one IMAD.WIDE.U32, whose 64-bit result
+#: takes two INT32 issue slots (its low and high words); the reduction is
+#: one reduce_p a sum of at most 4096 products, left out, so the bound
+#: stays a lower bound
+FIELD_MAC_SLOTS = 2
+#: operations a field multiply-add counts (a multiply and an add)
+OPS_PER_FIELD_MAC = 2
+#: field operations a second: 2 ops / 2 slots at INT32_INST_PER_S
+FIELD_OPS_PER_S = OPS_PER_FIELD_MAC * INT32_INST_PER_S / FIELD_MAC_SLOTS
+#: the collective term's link, bytes a second each way a GPU: NVLink 4 on
+#: an SXM card (18 links, 900 GB/s both ways), or one ConnectX-7 NDR 400
+#: Gb/s InfiniBand port a GPU between hosts
+LINK_BYTES_PER_S = {"nvlink4": 450e9, "ndr400": 50e9}
+
+_WORD = 4                     # every field element is an int32
+
+
+def bound(bytes_moved: float, ops: float) -> tuple:
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    HBM_BYTES_PER_S and the field operations over FIELD_OPS_PER_S."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FIELD_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def read_elements(shape, stride) -> int:
+    """Elements a kernel must read of a strided view: each element of its
+    storage once, so a broadcast (stride 0) counts its storage and a view
+    with gaps between its rows counts only its own elements."""
+    numel = 1
+    for n in shape:
+        numel *= n
+    if numel == 0:
+        return 0
+    return min(numel, 1 + sum((n - 1) * st for n, st in zip(shape, stride)))
+
+
+def gemm_work(a_shape, a_stride, b_shape, b_stride) -> tuple:
+    """(ops, bytes) of one field GEMM (modmatmul: 2-D operands;
+    modmatmul_batched: a leading batch)."""
+    if len(a_shape) == 2:
+        bsz, (m, k), n = 1, a_shape, b_shape[1]
+    else:
+        (bsz, m, k), n = a_shape, b_shape[2]
+    words = (read_elements(a_shape, a_stride)
+             + read_elements(b_shape, b_stride) + bsz * m * n)
+    return (OPS_PER_FIELD_MAC * bsz * m * k * n, _WORD * words)
+
+
+def gradient_work(n: int, m: int, d: int, c: int, degree: int) -> tuple:
+    """(ops, bytes) of one coded-gradient launch: f[i] = X~[i]^T
+    ghat(X~[i] w~[i]) for n clients, X~ (m, d), a (d, c) model: two field
+    multiply-adds an element of X~ a class."""
+    words = n * m * d + 2 * n * d * c + degree + 1
+    return (2 * OPS_PER_FIELD_MAC * n * m * d * c, _WORD * words)
+
+
+def fused_work(n: int, m: int, d: int, c: int, degree: int) -> tuple:
+    """(ops, bytes) of one fused_step launch: the gradient's work, and its
+    epilogue's operands (decode base, X^T y, model, TruncPr [r] + bias and
+    [r0] in; f and new w out; the (n,) rows)."""
+    words = n * m * d + 7 * n * d * c + 3 * n + degree + 1
+    return (2 * OPS_PER_FIELD_MAC * n * m * d * c, _WORD * words)
+
+
+def poly_work(length: int, degree: int) -> tuple:
+    """(ops, bytes) of one poly_eval launch (Horner: degree multiply-adds
+    an element)."""
+    return (OPS_PER_FIELD_MAC * degree * length,
+            _WORD * (2 * length + degree + 1))
+
+
+def copml_model_ops(n: int, m: int, d: int, k: int, t: int, r: int) -> float:
+    """Useful operations of one COPML iteration (paper Table II, the JAX
+    package's launch/copml_dist.py count): per client, encode the model
+    d*N*(K+T), the local coded gradient 2*ceil(m/K)*d, the decode d*R*K
+    field multiply-adds; all N clients; 2 operations a multiply-add."""
+    mk = -(-m // k)
+    macs = (d * n * (k + t) + 2 * mk * d + d * r * k) * n
+    return float(OPS_PER_FIELD_MAC * macs)
+
+
+@dataclasses.dataclass
+class Roofline:
+    name: str
+    chips: int
+    ops: float                   # executed (the JAX package's hlo_flops)
+    bytes: float                 # executed (its hlo_bytes)
+    coll_bytes_per_device: float
+    model_ops: float = 0.0       # useful (its model_flops)
+    link: str = "nvlink4"
+
+    def __post_init__(self):
+        if self.link not in LINK_BYTES_PER_S:
+            raise ValueError(f"unknown link {self.link!r}: one of "
+                             f"{sorted(LINK_BYTES_PER_S)}")
+
+    @property
+    def compute_s(self) -> float:
+        return self.ops / (self.chips * FIELD_OPS_PER_S)
+
+    @property
+    def memory_s(self) -> float:
+        return self.bytes / (self.chips * HBM_BYTES_PER_S)
+
+    @property
+    def collective_s(self) -> float:
+        return self.coll_bytes_per_device / LINK_BYTES_PER_S[self.link]
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_s(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def useful_ops_ratio(self) -> float:
+        return self.model_ops / self.ops if self.ops else 0.0
+
+    @property
+    def roofline_fraction(self) -> float:
+        """How close the useful work runs to the binding term:
+        (model_ops / peak) / bound_s."""
+        if not self.model_ops or not self.bound_s:
+            return 0.0
+        return self.model_ops / (self.chips * FIELD_OPS_PER_S) / self.bound_s
+
+    def to_dict(self) -> dict:
+        return {
+            "name": self.name, "chips": self.chips, "link": self.link,
+            "ops": self.ops, "bytes": self.bytes,
+            "coll_bytes_per_device": self.coll_bytes_per_device,
+            "model_ops": self.model_ops,
+            "compute_s": self.compute_s, "memory_s": self.memory_s,
+            "collective_s": self.collective_s, "dominant": self.dominant,
+            "useful_ops_ratio": self.useful_ops_ratio,
+            "roofline_fraction": self.roofline_fraction,
+        }

@@ -41,13 +41,13 @@ DEFAULT_PROCS = 4
 WORKER_MODULE = "repro_torch.launch.runtime.worker"
 
 
-def _rows(x: torch.Tensor, r: int, n_loc: int) -> np.ndarray:
+def _rows(x: torch.Tensor, r: int, n_loc: int) -> torch.Tensor:
     """Rank r's n_loc rows of a client-major tensor, on the host; rows past
     the last client are zeros (the padded clients)."""
-    part = x[r * n_loc:(r + 1) * n_loc].cpu().numpy()
+    part = x[r * n_loc:(r + 1) * n_loc].cpu()
     if part.shape[0] < n_loc:
-        pad = np.zeros((n_loc - part.shape[0],) + part.shape[1:], part.dtype)
-        part = np.concatenate([part, pad])
+        part = torch.cat([part, part.new_zeros(
+            (n_loc - part.shape[0],) + tuple(part.shape[1:]))])
     return part
 
 

@@ -141,12 +141,6 @@ def from_payload(payload: bytes, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(wire.unpack_array(payload))).to(dev)
 
 
-def _payload(x: torch.Tensor) -> bytes:
-    """A share tensor as an array payload (a device tensor is copied to
-    the host first)."""
-    return wire.share_payload(x.cpu().numpy())
-
-
 def worker_entry(rank: int, coord_host: str, coord_port: int):
     """Worker main: handshake, run the session, report, exit.
 
@@ -248,7 +242,8 @@ def _run_session(node: net.Node, sess: dict):
         reconstruction broadcast back (the OPEN barrier round)."""
         with clock("trunc_open"):
             node.send(net.COORD, net.OPEN, step=step, tag=net.TAG_TRUNC,
-                      payload=_payload(c_sh), phase="trunc_open")
+                      payload=wire.share_payload(c_sh.cpu()),
+                      phase="trunc_open")
             frm = node.recv(net.OPENED, src=net.COORD, step=step,
                             tag=net.TAG_TRUNC)
         return from_payload(frm.payload, dev)
@@ -281,7 +276,8 @@ def _run_session(node: net.Node, sess: dict):
             for s in range(P):
                 if s == rank:
                     continue
-                node.send(s, net.ENC, step=step, payload=_payload(seg(s)),
+                node.send(s, net.ENC, step=step,
+                          payload=wire.share_payload(seg(s).cpu()),
                           phase="encode")
             acc = seg(rank)
             for s in range(P):
@@ -354,7 +350,8 @@ def _run_session(node: net.Node, sess: dict):
                 if s == rank:
                     continue
                 node.send(s, net.SHARE, step=step,
-                          payload=_payload(mine_block(s)), phase="exchange")
+                          payload=wire.share_payload(mine_block(s).cpu()),
+                          phase="exchange")
             blocks = {rank: mine_block(rank)}
             sub = collect_blocks(blocks, step)
         if sub not in dvec_cache:
@@ -380,11 +377,12 @@ def _run_session(node: net.Node, sess: dict):
         if history:
             with clock("open_model"):
                 node.send(net.COORD, net.OPEN, step=t, tag=net.TAG_HIST,
-                          payload=_payload(w_loc), phase="open_model")
+                          payload=wire.share_payload(w_loc.cpu()),
+                          phase="open_model")
 
     with clock("open_model"):
         node.send(net.COORD, net.RESULT, payload=pickle.dumps({
-            "w": _payload(w_loc[:real_count(rank)]),
+            "w": wire.share_payload(w_loc[:real_count(rank)].cpu()),
             "seconds": dict(clock.seconds),
             "bytes": dict(node.sent_bytes),
             "frames": dict(node.sent_frames),

@@ -230,3 +230,64 @@ def test_nccl_with_more_ranks_than_cards_raises(cuda):
     with pytest.raises(ValueError, match="NCCL refuses two ranks"):
         meshutil.ClientMesh(torch.cuda.device_count() + 1, cuda,
                             backend="nccl")
+
+
+@pytest.mark.parametrize("argv", [
+    ["--clients", "13", "--m", "78"],
+    ["--clients", "20", "--m", "80", "--straggle-p", "0.15"]],
+    ids=["plain", "fault_plan"])
+def test_copml_dist_parity_on_the_card(cuda, capsys, argv):
+    """launch/copml_dist's parity on the card (gloo ranks on cuda:0),
+    bit-equal to the same run on the CPU."""
+    from repro_torch.core import meshutil
+    from repro_torch.launch import copml_dist
+    base = ["--devices", "2", "--iters", "3", "--d", "6"] + argv
+    try:
+        res_s, res_j = copml_dist.run_parity(
+            copml_dist.parser().parse_args(base))
+        assert "bit-exact: sharded == jit" in capsys.readouterr().out
+        assert res_s.device.startswith("cuda")
+        cpu_s, _ = copml_dist.run_parity(
+            copml_dist.parser().parse_args(base + ["--device", "cpu"]))
+        np.testing.assert_array_equal(res_s.weights, cpu_s.weights)
+        np.testing.assert_array_equal(res_s.state.w_shares.cpu().numpy(),
+                                      cpu_s.state.w_shares.numpy())
+    finally:
+        meshutil.close_meshes()
+
+
+@pytest.mark.parametrize("overlap", ["0", "1"])
+def test_dryrun_smoke_cell_on_the_card(cuda, monkeypatch, overlap):
+    """The smoke dry-run cell's step on 2 ranks of the card: bytes by
+    collective and launches equal to the closed forms (checked inside),
+    bit-equal to the single-device step, every rank's peak measured."""
+    from repro_torch.core import meshutil
+    from repro_torch.launch import copml_dist
+    monkeypatch.setenv("REPRO_SHARDED_OVERLAP", overlap)
+    try:
+        rec = copml_dist.dryrun_cell("smoke", 256, False, execute_ranks=2,
+                                     device="cuda")
+    finally:
+        meshutil.close_meshes()
+    ex = rec["executed"]
+    assert ex["device"].startswith("cuda") and ex["bit_equal_single_device"]
+    assert all(p and p > 0 for p in ex["peak_bytes"])
+    for launches in ex["launches"]:
+        assert launches["coded_gradient_batched"] == 1
+
+
+def test_launch_counter_on_the_card(cuda):
+    """launch_counter over two smoke steps on the card: its field-kernel
+    launches equal ops.launch_counts, and the profile saw the device."""
+    from repro_torch.launch import launch_counter
+    wl = api.get_workload("smoke")
+    res = api.fit(wl, "copml", "jit", iters=1)
+    proto = api.protocols.driver(wl, cuda)
+    ops.reset_launches()
+    cnt = launch_counter.count_steps(proto.iteration, res.state, 2)
+    counts = ops.launch_counts()
+    for name, per_step in cnt["launches"].items():
+        assert counts[name] == 2 * per_step, (name, counts, cnt["launches"])
+    assert counts["fused_step"] == 2
+    assert cnt["device_kernels_per_step"] > sum(cnt["launches"].values())
+    assert 0.0 < cnt["idle_share"] < 1.0 and cnt["device_ms_per_step"] > 0
