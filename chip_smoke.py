@@ -133,6 +133,25 @@ Phases (a failed phase fails the run; no failure is caught):
               a step, priced; the medians of IDLE_SAMPLES such samples'
               device launches and idle share agreeing with the medians of
               as many profile_steps samples over two steps, taken in turns)
+ 12. lm       LM serving (models/lm_serving.generate), no field kernel:
+              (a) qwen3-1.7b at full width and depth (28 layers, bf16,
+              weights from init_params with seed 0), B = 32 prompts of 512
+              tokens, 32 new, a 1024-token cache: params GB, prefill s, ms
+              a decode step, tokens/s, peak GiB, a profile of two more
+              decode steps of generate's own (device ms, idle share,
+              launches a step), the prefill and decode-step bounds
+              (launch/roofline.lm_*); the same prompts' bf16 prefill and
+              decode-step logits against float32 ones from the same
+              weights (correlation >= LM_BF16_MIN_CORR); the port's
+              flash_attention beside scaled_dot_product_attention
+              at the prefill shape (reference only); (b) every other LM
+              arch at its published widths, LM_DEPTH layers: in float32
+              with TF32 off, prefill then one decode step equal to the
+              full forward (MoE at capacity 8), then generate in bf16 (B
+              = 8, S0 = 128, 8 new, cache 256 + n_patches), measured as
+              in (a); (c) one arch a family (LM_FAMILY_ARCHS) in float32:
+              prefill and one decode step's logits and caches on the card
+              equal to the CPU's within LM_CPU_TOL
 
 Output: one {"kernels": [...]} JSON line (the seven TPU kernels' ports,
 then the row-dot and split-K paths of modmatmul as entries of their own,
@@ -148,6 +167,7 @@ the ptxas report, a profile of two steps) go to chip_smoke.json in OUT_DIR.
   python3 chip_smoke.py --quick    # build, ragged kernel checks, goldens
       # (phases 1-3)
   python3 chip_smoke.py --launch-only   # build, then phase 11 alone
+  python3 chip_smoke.py --lm-only       # build, then phase 12 alone
   python3 chip_smoke.py --compare OTHER/src   # the redesigned kernels of
       # another checkout (e.g. the parent commit's) and of this one, timed
       # in turns other, this, this, other; writes chiprun_out/compare.json
@@ -251,6 +271,27 @@ DRYRUN_RANKS = 4
 # one pause of the shared host moves it by more than the band; the medians
 # of the samples are compared.
 IDLE_SAMPLES = 5
+# phase 12: LM serving.  (a) the main path at full width and depth; (b)
+# every other LM arch at its published widths, LM_DEPTH layers (2 unless
+# named: zamba2 one shared-attention group, arctic 26.8 GB of experts a
+# layer in bf16, whisper its full 4 + 4); (c) one arch a family, card vs CPU
+LM_MAIN = "qwen3-1.7b"
+LM_MAIN_RUN = dict(batch=32, prompt=512, new=32, cache=1024)
+LM_OTHER_RUN = dict(batch=8, prompt=128, new=8, cache=256)
+LM_DEPTH = {"qwen3-1.7b": 2, "zamba2-2.7b": 6, "arctic-480b": 1,
+            "whisper-tiny": 4}
+LM_FAMILY_ARCHS = ("qwen3-1.7b", "internvl2-2b", "qwen3-moe-30b-a3b",
+                   "falcon-mamba-7b", "zamba2-2.7b", "whisper-tiny")
+LM_CHECK_B, LM_CHECK_S = 2, 32
+# float32, TF32 off: decode after prefill against the full forward, of
+# max |logit|; the card against the CPU, relative to max |CPU value|
+LM_PROPERTY_TOL = 1e-3
+LM_CPU_TOL = 1e-4
+# (a) the main path's bf16 logits against float32 ones, same weights and
+# prompts: correlation, as the CPU tests hold bf16 to JAX's
+LM_BF16_MIN_CORR = 0.999
+# the kernels a decode step's profile lists, by device time
+LM_TOP_KERNELS = 8
 
 TPU_KERNEL = {
     "modmatmul": "src/repro/kernels/modmatmul.py:70",
@@ -2015,6 +2056,331 @@ def phase_launch(ck: Checker, np) -> tuple:
     return summary, counts
 
 
+# --------------------------------------------------------- phase 12: LM
+
+def lm_params_gb(params: dict) -> float:
+    return sum(t.numel() * t.element_size() for t in params.values()) / 1e9
+
+
+def lm_frontier(torch, cfg, batch: int, gen, device):
+    """Seeded stub frames / patches (B, n, d) in the config's type, or
+    None for a family without a modality input."""
+    from repro_torch.models import model_zoo
+    fs = model_zoo._frontier_shape(cfg, batch)
+    if fs is None:
+        return None
+    return (0.5 * torch.randn(fs, generator=gen, device=device)).to(
+        cfg.torch_dtype)
+
+
+def lm_decode_stepper(torch, cfg, params, batch: dict, cache_len: int):
+    """(step, state) for launch_counter.profile_steps: generate's own
+    greedy steps (lm_serving.prefill_into_cache, then decode_next).
+    state = (caches, token (B, 1), pos, logits)."""
+    from repro_torch.models import lm_serving
+    scfg = lm_serving.ServeConfig(cache_len=cache_len)
+    logits, caches, pos = lm_serving.prefill_into_cache(cfg, params, batch,
+                                                        cache_len)
+
+    def step(key, state):
+        caches, tok, pos, _ = state
+        nxt, caches, _, logits = lm_serving.decode_next(
+            cfg, params, caches, tok, pos, scfg, None)
+        return caches, nxt, pos + 1, logits
+
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+    return step, (caches, tok, pos, logits)
+
+
+def lm_corr(a, b) -> float:
+    """Pearson correlation of two tensors' values, in float64 on the card."""
+    a, b = a.double().flatten(), b.double().flatten()
+    a, b = a - a.mean(), b - b.mean()
+    return float((a * b).sum() / (a.norm() * b.norm()))
+
+
+def lm_bf16_vs_f32(ck: Checker, cfg, params, batch: dict,
+                   cache_len: int) -> dict:
+    """The main path's bf16 logits against float32 ones on the card, from
+    the same weights widened and the same prompts: prefill's logits, and
+    one decode step's of the bf16 prefill's greedy token.  Each must
+    correlate >= LM_BF16_MIN_CORR."""
+    torch = ck.torch
+    from repro_torch.models import lm_serving, model_zoo
+    runs, tok = {}, None
+    for c, p in ((cfg, params),
+                 (cfg.scaled(dtype="float32"),
+                  {k: v.float() for k, v in params.items()})):
+        logits, caches, pos0 = lm_serving.prefill_into_cache(c, p, batch,
+                                                             cache_len)
+        if tok is None:
+            tok = torch.argmax(logits[:, -1], dim=-1).to(
+                torch.int32)[:, None]
+        dl, _ = model_zoo.build(c).decode_step(p, caches, tok, pos0)
+        runs[c.dtype] = (logits.float(), dl.float())
+        del p, caches
+    (pb, db), (pf, df) = runs["bfloat16"], runs["float32"]
+    rec = dict(prefill_corr=lm_corr(pb, pf), decode_corr=lm_corr(db, df),
+               prefill_rel=lm_rel(pb, pf), decode_rel=lm_rel(db, df))
+    log(f"lm: (a) bf16 against float32 on the card (same weights widened, "
+        f"TF32 off): prefill logits corr {rec['prefill_corr']:.6f} "
+        f"(max |diff| / max |f32| {rec['prefill_rel']:.3e}), one decode "
+        f"step {rec['decode_corr']:.6f} ({rec['decode_rel']:.3e}); "
+        f"min corr {LM_BF16_MIN_CORR}")
+    assert min(rec["prefill_corr"], rec["decode_corr"]) >= LM_BF16_MIN_CORR, \
+        rec
+    return rec
+
+
+def lm_serve(ck: Checker, cfg, params, run: dict, gen, what: str,
+             phase_base: int, bf16_check: bool = False) -> dict:
+    """generate() on the card at run's (batch, prompt, new, cache) after a
+    two-token warm-up of the same shapes; the tokens' shape, range and
+    prompt prefix checked; its peak memory above the phase's start
+    (`phase_base` bytes allocated; the weights included) and above the
+    call's start; a profile of two more decode steps (their logits
+    finite); the prefill and decode-step bounds
+    (launch/roofline.lm_*_work); with bf16_check, the same prompts' bf16
+    logits against float32 ones (lm_bf16_vs_f32)."""
+    torch = ck.torch
+    from repro_torch.launch import launch_counter, roofline
+    from repro_torch.models import lm_serving
+    b, s0 = run["batch"], run["prompt"]
+    cache = run["cache"] + (cfg.n_patches if cfg.family == "vlm" else 0)
+    prompts = torch.randint(0, cfg.vocab, (b, s0), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    frontier = lm_frontier(torch, cfg, b, gen, "cuda")
+    lm_serving.generate(cfg, params, prompts, lm_serving.ServeConfig(
+        max_new_tokens=2, cache_len=cache), frontier=frontier)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, stats = lm_serving.generate(
+        cfg, params, prompts, lm_serving.ServeConfig(
+            max_new_tokens=run["new"], cache_len=cache), frontier=frontier)
+    peak = torch.cuda.max_memory_allocated()
+    peak_gib = (peak - phase_base) / 2 ** 30
+    call_gib = (peak - base) / 2 ** 30
+    assert out.shape == (b, s0 + run["new"]) and out.is_cuda, out.shape
+    assert torch.equal(out[:, :s0], prompts)
+    assert int(out.min()) >= 0 and int(out.max()) < cfg.vocab
+    del out
+    batch = {"tokens": prompts}
+    if frontier is not None:
+        batch["frontier"] = frontier
+    step, state = lm_decode_stepper(torch, cfg, params, batch, cache)
+    prof, _, state = launch_counter.profile_steps(step, state, 2)
+    assert bool(torch.isfinite(state[3].float()).all()), what
+    del state, step
+    f32_check = lm_bf16_vs_f32(ck, cfg, params, batch, cache) \
+        if bf16_check else None
+    pre_ms, pre_by = roofline.lm_bound(*roofline.lm_prefill_work(cfg, b, s0))
+    dec_ms, dec_by = roofline.lm_bound(*roofline.lm_decode_work(cfg, b,
+                                                                cache))
+    rec = dict(
+        arch=cfg.name, family=cfg.family, layers=cfg.n_layers,
+        d_model=cfg.d_model, d_ff=cfg.d_ff, heads=cfg.n_heads,
+        kv_heads=cfg.n_kv, dtype=cfg.dtype, batch=b, prompt=s0,
+        new=run["new"], cache=cache, params_gb=lm_params_gb(params),
+        prefill_s=stats["prefill_s"], prefill_bound_ms=pre_ms,
+        prefill_bound_by=pre_by,
+        decode_ms_per_step=stats["decode_s"] / (run["new"] - 1) * 1e3,
+        decode_bound_ms=dec_ms, decode_bound_by=dec_by,
+        tokens_per_s=stats["tokens_per_s"], peak_gib=peak_gib,
+        call_peak_gib=call_gib, bf16_vs_f32=f32_check,
+        **{k: prof[k] for k in ("wall_ms_per_step", "device_ms_per_step",
+                                "idle_share", "device_kernels_per_step")},
+        top_kernels=sorted(
+            ((k, v["device_ms"] / 2, v["count"] / 2)
+             for k, v in prof["device_by_kernel"].items()),
+            key=lambda r: -r[1])[:LM_TOP_KERNELS])
+    log(f"lm: {what} {cfg.name} L={cfg.n_layers} d={cfg.d_model} "
+        f"{cfg.dtype} B={b} S0={s0} new={run['new']} cache={cache}: "
+        f"params {rec['params_gb']:.3f} GB; prefill "
+        f"{rec['prefill_s'] * 1e3:.2f} ms (bound {pre_ms:.3f}, {pre_by}); "
+        f"decode {rec['decode_ms_per_step']:.3f} ms a step (bound "
+        f"{dec_ms:.4f}, {dec_by}); {rec['tokens_per_s']:.1f} tokens/s; "
+        f"peak {peak_gib:.3f} GiB above the phase's start ({call_gib:.3f} "
+        f"above the call's); profile of 2 steps: device "
+        f"{prof['device_ms_per_step']} ms, idle {prof['idle_share']}, "
+        f"{prof['device_kernels_per_step']} launches a step, wall "
+        f"{prof['wall_ms_per_step']:.3f} ms; device ms and launches a step "
+        f"by kernel: "
+        + "; ".join(f"{k[:60]} {ms:.3f} x{n:g}"
+                    for k, ms, n in rec["top_kernels"]))
+    return rec
+
+
+def lm_rel(got, want) -> float:
+    """max |got - want| / max |want|, on the CPU in float32."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def lm_leaves(tree) -> list:
+    if isinstance(tree, tuple):
+        return [x for t in tree for x in lm_leaves(t)]
+    return [tree]
+
+
+def lm_property(ck: Checker, cfg, params, gen) -> float:
+    """Prefill of LM_CHECK_S tokens then one decode step gives the full
+    forward's logits at that position (float32, MoE at capacity 8).
+    Returns max |decode - full| / max |full|."""
+    torch = ck.torch
+    from repro_torch.models import lm_serving, model_zoo
+    b, s = LM_CHECK_B, LM_CHECK_S
+    tokens = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    frontier = lm_frontier(torch, cfg, b, gen, "cuda")
+    bm = model_zoo.build(cfg)
+    full, _ = bm.prefill_step(params, {"tokens": tokens,
+                                       "frontier": frontier})
+    _, caches, pos0 = lm_serving.prefill_into_cache(
+        cfg, params, {"tokens": tokens[:, :s], "frontier": frontier},
+        s + 8 + cfg.n_patches)
+    dec, _ = bm.decode_step(params, caches, tokens[:, s:], pos0)
+    err = lm_rel(dec[:, -1], full[:, -1])
+    assert err <= LM_PROPERTY_TOL, (cfg.name, err)
+    return err
+
+
+def lm_card_vs_cpu(ck: Checker, cfg, params, gen) -> dict:
+    """Prefill logits and caches, and one decode step's logits and caches,
+    on the card and on the CPU from the same float32 weights and inputs.
+    Returns the worst max |card - cpu| / max |cpu| of each."""
+    torch = ck.torch
+    from repro_torch.models import lm_serving, model_zoo
+    b, s = LM_CHECK_B, LM_CHECK_S
+    tokens = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
+                           device="cuda", dtype=torch.int32)
+    frontier = lm_frontier(torch, cfg, b, gen, "cuda")
+    bm = model_zoo.build(cfg)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        p = params if dev == "cuda" else {k: v.cpu() for k, v in
+                                          params.items()}
+        batch = {"tokens": tokens[:, :s].to(dev)}
+        if frontier is not None:
+            batch["frontier"] = frontier.to(dev)
+        logits, pc = bm.prefill_step(p, batch)
+        pre = (logits, lm_leaves(pc))
+        _, caches, pos0 = lm_serving.prefill_into_cache(
+            cfg, p, batch, s + 8 + cfg.n_patches)
+        dl, dc = bm.decode_step(p, caches, tokens[:, s:].to(dev), pos0)
+        outs[dev] = (pre, (dl, lm_leaves(dc)))
+        del p
+    errs = {}
+    for i, what in enumerate(("prefill", "decode")):
+        (gl, gc), (wl, wc) = outs["cuda"][i], outs["cpu"][i]
+        errs[f"{what}_logits"] = lm_rel(gl, wl)
+        errs[f"{what}_caches"] = max(lm_rel(g, w) for g, w in zip(gc, wc))
+    assert max(errs.values()) <= LM_CPU_TOL, (cfg.name, errs)
+    return errs
+
+
+def lm_sdpa_reference(ck: Checker, cfg) -> dict:
+    """models/common.flash_attention against F.scaled_dot_product_attention
+    at the main path's prefill shape (causal, GQA): the library's time,
+    beside the port's, as a reference number only."""
+    torch = ck.torch
+    import torch.nn.functional as F
+    from repro_torch.models import common
+    b, s = LM_MAIN_RUN["batch"], LM_MAIN_RUN["prompt"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+
+    def mk(h):
+        return torch.randn((b, s, h, cfg.hd), generator=g, device="cuda",
+                           dtype=cfg.torch_dtype)
+    q, k, v = mk(cfg.n_heads), mk(cfg.n_kv), mk(cfg.n_kv)
+    rep = cfg.n_heads // cfg.n_kv
+
+    def port():
+        return common.flash_attention(q, k, v, causal=True)
+
+    def lib():
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.repeat_interleave(rep, 2).transpose(1, 2),
+            v.repeat_interleave(rep, 2).transpose(1, 2),
+            is_causal=True).transpose(1, 2)
+    err = lm_rel(port(), lib())
+    rec = dict(shape=[b, s, cfg.n_heads, cfg.n_kv, cfg.hd],
+               port_ms=ck.time_ms(port, 10), sdpa_ms=ck.time_ms(lib, 10),
+               max_rel_diff=err)
+    log(f"lm: flash_attention (port) vs scaled_dot_product_attention at "
+        f"{rec['shape']} (B, S, Hq, Hkv, hd), causal, bf16: "
+        f"{rec['port_ms']:.3f} vs {rec['sdpa_ms']:.3f} ms (CUDA events; "
+        f"reference only), max |diff| / max |sdpa| {err:.2e}")
+    return rec
+
+
+def phase_lm(ck: Checker) -> dict:
+    """LM serving on the card: (a) qwen3-1.7b at full width and depth
+    through generate, (b) every other LM arch at its published widths
+    with LM_DEPTH layers (float32 prefill-then-decode property, then bf16
+    generate), (c) one arch a family, float32, card against CPU."""
+    import gc
+    torch = ck.torch
+    from repro_torch.configs import registry
+    from repro_torch.models import model
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_base = torch.cuda.memory_allocated()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out: dict = {"runs": [], "property": {}, "card_vs_cpu": {}}
+
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    # (a) the main path
+    cfg = registry.get_config(LM_MAIN)
+    params = model.init_params(cfg, gen(0), "cuda")
+    out["runs"].append(lm_serve(ck, cfg, params, LM_MAIN_RUN, gen(1),
+                                "(a) main path", phase_base,
+                                bf16_check=True))
+    out["sdpa_reference"] = lm_sdpa_reference(ck, cfg)
+    del params
+    # (b) every other arch at its widths, LM_DEPTH layers
+    for arch in registry.LM_ARCH_IDS:
+        depth = LM_DEPTH.get(arch, 2)
+        cfg = registry.get_config(arch).scaled(n_layers=depth)
+        gc.collect()
+        torch.cuda.empty_cache()
+        f32 = cfg.scaled(dtype="float32",
+                         capacity_factor=8.0 if cfg.family == "moe"
+                         else cfg.capacity_factor)
+        params = model.init_params(f32, gen(0), "cuda")
+        out["property"][arch] = lm_property(ck, f32, params, gen(2))
+        if arch in LM_FAMILY_ARCHS:
+            f32 = f32.scaled(capacity_factor=cfg.capacity_factor)
+            out["card_vs_cpu"][arch] = lm_card_vs_cpu(ck, f32, params,
+                                                      gen(4))
+        del params
+        log(f"lm: {arch} L={depth} float32: prefill-then-decode "
+            f"{out['property'].get(arch)} (tol {LM_PROPERTY_TOL}); card vs "
+            f"cpu {out['card_vs_cpu'].get(arch)} (tol {LM_CPU_TOL})")
+        if arch == LM_MAIN:
+            continue
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = model.init_params(cfg, gen(0), "cuda")
+        out["runs"].append(lm_serve(ck, cfg, params, LM_OTHER_RUN, gen(1),
+                                    "(b)", phase_base))
+        del params
+    assert set(out["card_vs_cpu"]) == set(LM_FAMILY_ARCHS)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"lm: phase 12 took {out['seconds']:.1f} s")
+    return out
+
+
 def set_schedule(mode: str) -> None:
     """REPRO_FUSED_STEP for the next fit ("0" siloed, "1" fused)."""
     os.environ["REPRO_FUSED_STEP"] = mode
@@ -2323,6 +2689,9 @@ def main() -> int:
     parser.add_argument("--launch-only", action="store_true",
                         help="build, then phase 11 (the launch layer) "
                              "alone, into chiprun_out/chip_smoke_launch.json")
+    parser.add_argument("--lm-only", action="store_true",
+                        help="build, then phase 12 (LM serving) alone, "
+                             "into chiprun_out/chip_smoke_lm.json")
     parser.add_argument("--time-only", metavar="SRC", help=argparse.SUPPRESS)
     args = parser.parse_args()
     import numpy as np
@@ -2361,6 +2730,11 @@ def main() -> int:
         (OUT_DIR / "chip_smoke_launch.json").write_text(
             json.dumps(launch, indent=1))
         return 0
+    if args.lm_only:
+        lm = phase_lm(ck)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_lm.json").write_text(json.dumps(lm, indent=1))
+        return 0
     rows = phase_kernels(ck, args.quick)
     rows.update(phase_kernels_siloed(ck, args.quick))
     rows.update(phase_kernels_protocols(ck, args.quick))
@@ -2389,6 +2763,7 @@ def main() -> int:
         report["launch"], launch_counts = phase_launch(ck, np)
         proc_runs["launch_counter 2 jit steps cifar10_case2"] = \
             launch_counts
+        report["lm"] = phase_lm(ck)
         for name in FUSED_PATH:
             counts[name] = fused_counts[name]
             path[name] = "fused cifar10_case2"

@@ -9,6 +9,8 @@ That package uses `jax.random` with the NON-partitionable threefry layout
   split(key, n)   hash of iota(2n), reshaped (n, 2)          (_threefry_split_original)
   fold_in(key, x) hash of [0, x]                             (threefry_fold_in)
   randint         two 32-bit draws combined mod span         (random._randint)
+  uniform         23 random mantissa bits of one 32-bit draw (random._uniform)
+  categorical     argmax(logits + Gumbel(uniform))           (random.categorical)
 
 A key is a (2,) int64 tensor holding two uint32 words.  Keys are derived
 on the host with Python ints (a split is a handful of hashes), so a key
@@ -184,3 +186,49 @@ def _draw(hi_key, lo_key, n: int, minval: int, maxval: int, device,
             out[..., h + qs:h + qs + tail] = (offs[1][..., :tail]
                                               + minval).to(torch.int32)
     return out
+
+
+def bits32(key, shape, *, device="cpu") -> torch.Tensor:
+    """jax.random.bits(key, shape, uint32): the hash of counters iota(n)
+    under the key itself (no split), as int64 words in [0, 2^32)."""
+    k0, k1 = _words(key)
+    n = math.prod(shape)
+    h = (n + 1) // 2
+    c0 = torch.arange(h, dtype=torch.int64, device=device)
+    c1 = c0 + h
+    if n % 2:
+        c1[-1] = 0                        # the odd count's zero pad
+    w0, w1 = threefry2x32(k0, k1, c0, c1)
+    return torch.cat([w0, w1])[:n].reshape(shape)
+
+
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0, *,
+            device="cpu") -> torch.Tensor:
+    """jax.random.uniform(key, shape, float32, minval, maxval): the draw's
+    top 23 bits as the mantissa of a float in [1, 2), minus 1, scaled
+    and shifted in float32, and floored at minval."""
+    bits = bits32(key, shape, device=device)
+    one = int(np.array(1.0, np.float32).view(np.int32))
+    floats = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def gumbel(key, shape, *, device="cpu") -> torch.Tensor:
+    """jax.random.gumbel(key, shape, float32) in its default "low" mode:
+    -log(-log(uniform(tiny, 1)))."""
+    u = uniform(key, shape, _F32_TINY, 1.0, device=device)
+    return -torch.log(-torch.log(u))
+
+
+def categorical(key, logits: torch.Tensor) -> torch.Tensor:
+    """jax.random.categorical(key, logits) over the last axis (the Gumbel
+    max trick).  The noise is drawn in float32 and the logits are widened
+    to it: jax draws in the logits' own type, so only float32 logits give
+    jax's samples."""
+    g = gumbel(key, tuple(logits.shape), device=logits.device)
+    return torch.argmax(g + logits.float(), dim=-1)

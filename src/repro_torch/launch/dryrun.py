@@ -10,7 +10,8 @@ one real step at --execute-ranks ranks (0: the model alone); see
 launch/copml_dist.py.  The modelled numbers are a model of a mesh this
 machine does not have; the executed step's are measured.  --out writes
 one JSON a cell.  Every requested cell is reported; a failing cell is
-reported and the run goes on, then exits 1.
+reported and the run goes on, then exits 1.  The LM archs are skipped
+(SKIP lines, exit 0): their dry run comes with the LM training slice.
 """
 
 import argparse
@@ -24,6 +25,7 @@ from . import copml_dist
 from . import mesh as mesh_lib
 
 SHAPES = ("smoke", "train_4k", "prefill_32k", "decode_32k", "long_500k")
+LM_SKIP = "LM dry-run comes with the LM training slice"
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir=None,
@@ -66,6 +68,9 @@ def main(argv=None):
               "both": (False, True)}[args.mesh]
     failures = []
     for arch in archs:
+        if arch in registry.LM_ARCH_IDS:
+            print(f"SKIP {arch}: {LM_SKIP}")
+            continue
         for shape in shapes:
             for mp in meshes:
                 try:

@@ -1,4 +1,5 @@
-"""Roofline terms of a COPML step on NVIDIA H100 (SXM) cards.
+"""Roofline terms of a COPML step, and of an LM serving step, on NVIDIA
+H100 (SXM) cards.
 
 Per (shape x mesh):
   compute term    = ops / (chips * FIELD_OPS_PER_S)
@@ -15,6 +16,14 @@ kernel implements the step.
 
 The elementwise torch ops of a step (the threefry emulation, field adds)
 are not field-kernel launches and are not counted.
+
+An LM serving step (`lm_prefill_work`, `lm_decode_work`, `lm_bound`) is
+priced from its config and shapes: bytes are every weight the step needs
+read once (an MoE layer's experts only as many as its tokens can route
+to, min(n_experts, tokens x top_k)), the K/V and state caches written
+(prefill) or read (decode: the whole cache, as decode_attention reads
+it), and operations are 2 a multiply-add of its matrix products at
+BF16_FLOPS_PER_S.
 """
 
 from __future__ import annotations
@@ -45,6 +54,10 @@ FIELD_MAC_SLOTS = 2
 OPS_PER_FIELD_MAC = 2
 #: field operations a second: 2 ops / 2 slots at INT32_INST_PER_S
 FIELD_OPS_PER_S = OPS_PER_FIELD_MAC * INT32_INST_PER_S / FIELD_MAC_SLOTS
+#: dense BF16 tensor-core FLOP/s with FP32 accumulate (NVIDIA H100 Tensor
+#: Core GPU Architecture whitepaper, H100 SXM5: 989.4 TFLOPS, 1978.9 with
+#: sparsity): the counterpart of the JAX roofline's PEAK_FLOPS
+BF16_FLOPS_PER_S = 989.4e12
 #: the collective term's link, bytes a second each way a GPU: NVLink 4 on
 #: an SXM card (18 links, 900 GB/s both ways), or one ConnectX-7 NDR 400
 #: Gb/s InfiniBand port a GPU between hosts
@@ -178,3 +191,139 @@ class Roofline:
             "useful_ops_ratio": self.useful_ops_ratio,
             "roofline_fraction": self.roofline_fraction,
         }
+
+
+# --------------------------------------------------------------- LM serving
+
+#: per-layer parameters that are not matrix-product operands
+_NOT_MATMUL = ("conv_w", "a_log")
+
+
+def _lm_terms(cfg) -> dict:
+    """Matrix-product parameters a token multiplies, by what it is applied
+    to: "layer" (every decoder layer, MoE experts at top_k / n_experts,
+    the router in), "shared" (zamba2's shared block, once a group),
+    "cross_kv" (whisper's cross K/V projections: encoder tokens),
+    "encoder" (whisper's encoder layers) and "patch" (internvl2's patch
+    projection: patch tokens), each summed over its layers; the weights'
+    bytes, and of them the MoE experts' ("expert_bytes")."""
+    from ..models.model import param_table
+    terms = dict(layer=0.0, shared=0.0, cross_kv=0.0, encoder=0.0,
+                 patch=0.0, weight_bytes=0, expert_bytes=0)
+    for name, par in param_table(cfg).items():
+        numel = 1
+        for n in par.shape:
+            numel *= n
+        nbytes = numel * (4 if (par.dtype or cfg.dtype) == "float32" else 2)
+        terms["weight_bytes"] += nbytes
+        leaf = name.split("/")[-1]
+        stacked = name.startswith(("layers/", "enc_layers/"))
+        if len(par.shape) - stacked < 2 or leaf in _NOT_MATMUL \
+                or name == "embed":
+            continue
+        if name.startswith("enc_layers/"):
+            terms["encoder"] += numel
+        elif leaf in ("xwk", "xwv"):
+            terms["cross_kv"] += numel
+        elif name.startswith("shared_attn/"):
+            terms["shared"] += numel * (cfg.n_layers // cfg.attn_every)
+        elif name == "patch_proj":
+            terms["patch"] += numel
+        elif leaf in ("w_gate", "w_up", "w_down") and cfg.family == "moe":
+            terms["layer"] += numel * cfg.top_k / cfg.n_experts
+            terms["expert_bytes"] += nbytes
+        else:
+            terms["layer"] += numel
+    return terms
+
+
+def _weight_bytes(cfg, t: dict, tokens: int) -> float:
+    """The weights a step over `tokens` tokens must read: all but the MoE
+    experts, and of each MoE layer's experts the min(n_experts, tokens x
+    top_k) that its tokens can route to (a bound: the router may pick
+    fewer distinct ones)."""
+    if cfg.family != "moe":
+        return t["weight_bytes"]
+    used = min(cfg.n_experts, tokens * cfg.top_k)
+    return t["weight_bytes"] - t["expert_bytes"] + \
+        t["expert_bytes"] * used / cfg.n_experts
+
+
+def _attn_layers(cfg) -> int:
+    """Self-attention applications a forward makes."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    return cfg.n_layers
+
+
+def _kv_bytes(cfg, batch: int, seq: int) -> float:
+    """The self-attention K/V of `seq` positions, and whisper's cross K/V."""
+    elem = 4 if cfg.dtype == "float32" else 2
+    per = 2 * batch * cfg.n_kv * cfg.hd * elem
+    out = _attn_layers(cfg) * per * seq
+    if cfg.family == "encdec":
+        out += cfg.n_layers * per * cfg.encoder_seq
+    return out
+
+
+def _state_bytes(cfg, batch: int) -> float:
+    """A state-space layer's conv and ssm states (float32 ssm state)."""
+    if cfg.family not in ("ssm", "hybrid"):
+        return 0.0
+    elem = 4 if cfg.dtype == "float32" else 2
+    conv = (cfg.ssm_conv - 1) * cfg.d_inner * elem
+    return cfg.n_layers * batch * (conv + cfg.d_inner * cfg.ssm_state * 4)
+
+
+def lm_prefill_work(cfg, batch: int, s0: int) -> tuple:
+    """(operations, bytes) of prefill_step on (batch, s0) prompts: the
+    products of every token through the layers (vlm: the patch prefix
+    too), the last position's logits, causal self-attention (S(S+1)/2
+    pairs), whisper's encoder and cross-attention; every weight the
+    tokens need read once and the caches written.  The state-space scans' elementwise operations
+    are left out (a lower bound)."""
+    t = _lm_terms(cfg)
+    seq = s0 + (cfg.n_patches if cfg.family == "vlm" else 0)
+    tokens = batch * seq
+    macs = tokens * (t["layer"] + t["shared"]) + batch * cfg.vocab * \
+        cfg.d_model
+    attn = 4 * batch * cfg.n_heads * cfg.hd
+    ops = 2 * macs + attn * _attn_layers(cfg) * seq * (seq + 1) / 2
+    if cfg.family == "vlm":
+        ops += 2 * batch * cfg.n_patches * t["patch"]
+    if cfg.family == "encdec":
+        se = cfg.encoder_seq
+        ops += 2 * batch * se * (t["encoder"] + t["cross_kv"])
+        ops += attn * (cfg.encoder_layers * se * se + cfg.n_layers * seq * se)
+    nbytes = _weight_bytes(cfg, t, tokens) + _kv_bytes(cfg, batch, seq) + \
+        _state_bytes(cfg, batch)
+    return ops, nbytes
+
+
+def lm_decode_work(cfg, batch: int, cache_len: int) -> tuple:
+    """(operations, bytes) of one decode_step: one token a sequence through
+    the layers and the logits, attention over the whole cache_len cache
+    (and whisper's encoder_seq cross cache); every weight the batch's
+    tokens need read once (MoE: min(n_experts, batch x top_k) experts a
+    layer), the whole K/V cache read, the state-space states read and
+    written."""
+    t = _lm_terms(cfg)
+    macs = batch * (t["layer"] + t["shared"]) + batch * cfg.vocab * \
+        cfg.d_model
+    attn = 4 * batch * cfg.n_heads * cfg.hd
+    ops = 2 * macs + attn * _attn_layers(cfg) * cache_len
+    if cfg.family == "encdec":
+        ops += attn * cfg.n_layers * cfg.encoder_seq
+    nbytes = _weight_bytes(cfg, t, batch) + _kv_bytes(cfg, batch, cache_len) \
+        + 2 * _state_bytes(cfg, batch)
+    return ops, nbytes
+
+
+def lm_bound(ops: float, bytes_moved: float) -> tuple:
+    """(least ms, "bytes" or "operations"): the larger of the bytes over
+    HBM_BYTES_PER_S and the operations over BF16_FLOPS_PER_S."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / BF16_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")

@@ -5,7 +5,8 @@
 
 prints the TrainResult's summary line, as api.fit(workload, protocol,
 engine, iters=) gives it.  Runs on the CUDA card unless --device cpu is
-given.  The LM archs and their flags come with the LM stack.
+given.  An LM arch is refused: LM training and its flags come with the LM
+training slice (the LM archs serve through models/lm_serving.generate).
 """
 
 from __future__ import annotations
@@ -29,6 +30,9 @@ def main(argv=None):
     ap.add_argument("--device", choices=DEVICES, default=None,
                     help="run on the CUDA card (the default) or on the CPU")
     args = ap.parse_args(argv)
+    if args.arch in registry.LM_ARCH_IDS:
+        ap.error(f"--arch {args.arch}: LM training comes with the LM "
+                 "training slice")
 
     from .. import api
     res = api.fit(args.workload, args.protocol, args.engine,

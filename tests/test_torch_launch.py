@@ -359,12 +359,39 @@ def test_launch_counter_on_cpu_steps(monkeypatch, mode, kernel):
     assert rf.ops == cnt["ops"] and rf.chips == 1
 
 
-def test_registry_and_production_meshes():
-    assert registry.ARCH_IDS == ("copml-logreg",)
+def test_registry_and_production_meshes(capsys):
+    """The registry holds the JAX package's archs in its order, each
+    config equal to the JAX package's field by field; the launch CLIs
+    refuse the LM archs (training) or skip them (dry run, exit 0)."""
+    import dataclasses
+
+    from repro.configs import registry as jregistry
+    from repro_torch.launch import train
+    assert registry.ARCH_IDS == jregistry.ARCH_IDS
+    assert registry.LM_ARCH_IDS == registry.ARCH_IDS[:-1]
+    for arch in registry.ARCH_IDS:
+        for get in ("get_config", "smoke_config"):
+            got = getattr(registry, get)(arch)
+            want = getattr(jregistry, get)(arch)
+            assert type(got).__name__ == type(want).__name__, (arch, get)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want), \
+                (arch, get)
     assert registry.get_config("copml-logreg") is copml_logreg.CONFIG
     assert registry.smoke_config("copml-logreg") is copml_logreg.SMOKE
     with pytest.raises(ValueError):
-        registry.get_config("qwen3-1.7b")
+        registry.get_config("gpt-5")
+    with pytest.raises(SystemExit) as exc:
+        train.main(["--arch", "qwen3-1.7b", "--device", "cpu"])
+    assert exc.value.code == 2
+    assert "LM training comes with the LM training slice" in \
+        capsys.readouterr().err
+    dryrun.main(["--all", "--execute-ranks", "0"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [line for line in lines if line.startswith("SKIP")
+            and "copml-logreg" not in line] == [
+        f"SKIP {a}: LM dry-run comes with the LM training slice"
+        for a in registry.LM_ARCH_IDS]
+    assert lines[-1] == "dry-run: all requested cells compiled"
     assert (mesh_lib.production_ranks(),
             mesh_lib.production_ranks(multi_pod=True)) == (256, 512)
     assert isinstance(copml_dist.parser().parse_args([]), argparse.Namespace)

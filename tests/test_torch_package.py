@@ -15,7 +15,9 @@ import torch
 from repro_torch import api
 from repro_torch.core import meshutil, protocol
 from repro_torch.kernels import build, ops
+from repro_torch.configs import registry
 from repro_torch.launch.runtime import session
+from repro_torch.models import lm_serving, model, model_zoo
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
@@ -61,6 +63,25 @@ def test_entry_points_need_a_card_unless_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         protocol.Copml(wl.cfg, wl.m, wl.d)
     assert protocol.resolve_device("cpu") == torch.device("cpu")
+    # the LM stack: weights, caches and generate
+    cfg = registry.smoke_config("smollm-360m")
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_params(cfg, gen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model_zoo.build(cfg).init_params(gen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model_zoo.init_cache(cfg, 1, 8)
+    params = model.init_params(cfg, gen, "cpu")
+    assert all(t.device.type == "cpu" for t in params.values())
+    as_np = {k: v.float().numpy() for k, v in params.items()}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.params_from_jax(cfg, as_np)
+    caches = model.caches_to_numpy(model_zoo.init_cache(cfg, 1, 8, "cpu"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.caches_from_jax(caches)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lm_serving.generate(cfg, params, [[1, 2]], lm_serving.ServeConfig())
 
 
 def test_kernel_sources_and_launch_counts():
