@@ -152,6 +152,27 @@ Phases (a failed phase fails the run; no failure is caught):
               in (a); (c) one arch a family (LM_FAMILY_ARCHS) in float32:
               prefill and one decode step's logits and caches on the card
               equal to the CPU's within LM_CPU_TOL
+ 13. lm_train LM training (models/model_zoo.build(...).train_step, in
+              place): (a) qwen3-1.7b at full width and depth (28 layers,
+              bf16, adamw, remat), B = 8, S = 1024, loss chunk 512, on
+              data/pipeline.lm_batch's stream, weights from init_params
+              seed 0: 2 warm-up then 4 timed steps (ms a step, tokens/s,
+              peak GiB, parameter and optimizer-state GB), a profile of two
+              more (device ms, idle share, launches a step, top kernels),
+              the bound (launch/roofline.lm_train_work); the loss finite and
+              falling over the 6 steps; (b) every other LM arch at its
+              published widths, LM_DEPTH layers, one warm-up and one timed
+              bf16 step (B = 4, S = 256); (c) one arch a family in float32,
+              TF32 off, on the card against the CPU within LM_CPU_TOL:
+              loss_fn's gradients at the published widths (1 layer), one
+              whole train_step at SMOKE, and at SMOKE the step with
+              microbatching or a chunked loss equal to the plain step;
+              (d) train_secure (smollm-360m, 2 layers, N = 4, T = 1, 2
+              steps): the thin modmatmul's launches, secure_aggregate on the
+              card equal to the CPU's bit for bit (LM_AGG_LEAVES), the thin
+              GEMM's device ms and bound; (e) subprocesses: launch.train with
+              checkpoints, resumed, equal to a straight run; launch.dryrun
+              --arch qwen3-1.7b --shape all --mesh both
 
 Output: one {"kernels": [...]} JSON line (the seven TPU kernels' ports,
 then the row-dot and split-K paths of modmatmul as entries of their own,
@@ -168,6 +189,7 @@ the ptxas report, a profile of two steps) go to chip_smoke.json in OUT_DIR.
       # (phases 1-3)
   python3 chip_smoke.py --launch-only   # build, then phase 11 alone
   python3 chip_smoke.py --lm-only       # build, then phase 12 alone
+  python3 chip_smoke.py --lm-train-only # build, then phase 13 alone
   python3 chip_smoke.py --compare OTHER/src   # the redesigned kernels of
       # another checkout (e.g. the parent commit's) and of this one, timed
       # in turns other, this, this, other; writes chiprun_out/compare.json
@@ -179,6 +201,7 @@ import argparse
 import collections
 import hashlib
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -292,6 +315,19 @@ LM_CPU_TOL = 1e-4
 LM_BF16_MIN_CORR = 0.999
 # the kernels a decode step's profile lists, by device time
 LM_TOP_KERNELS = 8
+# phase 13: LM training.  (a) the main path at full width and depth, 2
+# warm-up steps then 4 timed; (b) every other arch at its published widths
+# and LM_DEPTH layers, one warm-up and one timed step; (d) train_secure;
+# (e) launch.train's resume (smoke config)
+LM_TRAIN_MAIN = dict(batch=8, seq=1024, loss_chunk=512)
+LM_TRAIN_WARM, LM_TRAIN_TIMED = 2, 4
+LM_TRAIN_OTHER = dict(batch=4, seq=256, loss_chunk=128)
+# (c) card against CPU: gradients at the published widths, one layer
+# (zamba2 one shared-attention group of 6); the whole step at SMOKE
+LM_TRAIN_CHECK_DEPTH = {"zamba2-2.7b": 6}
+LM_SECURE = dict(arch="smollm-360m", layers=2, n=4, t=1, steps=2, batch=8,
+                 seq=128)
+LM_RESUME = dict(batch=8, seq=128, ckpt_every=3)
 
 TPU_KERNEL = {
     "modmatmul": "src/repro/kernels/modmatmul.py:70",
@@ -412,6 +448,24 @@ class Checker:
             raise AssertionError(f"{name} {what}: shape {tuple(got.shape)} "
                                  f"!= {tuple(want.shape)}")
         err = int((got - want).abs().max()) if got.numel() else 0
+        self.max_err[name] = max(self.max_err[name], err)
+        self.checks[name] += 1
+        if err:
+            raise AssertionError(f"{name} {what}: max |kernel - plain| = "
+                                 f"{err} (must be 0)")
+
+    def compare_on_card(self, name, got, want, what):
+        """compare() without the copy to the host, 2^26 columns at a time:
+        for outputs of several GB."""
+        torch, cols = self.torch, 1 << 26
+        if got.shape != want.shape:
+            raise AssertionError(f"{name} {what}: shape {tuple(got.shape)} "
+                                 f"!= {tuple(want.shape)}")
+        err = 0
+        for c0 in range(0, got.shape[-1], cols):
+            gap = (got[..., c0:c0 + cols].to(torch.int64)
+                   - want[..., c0:c0 + cols].to(torch.int64)).abs()
+            err = max(err, int(gap.max()) if gap.numel() else 0)
         self.max_err[name] = max(self.max_err[name], err)
         self.checks[name] += 1
         if err:
@@ -2381,6 +2435,391 @@ def phase_lm(ck: Checker) -> dict:
     return out
 
 
+# -------------------------------------------------- phase 13: LM training
+
+def lm_train_batch(torch, cfg, run: dict, gen, step: int = 0,
+                   device="cuda") -> dict:
+    """data/pipeline.lm_batch's batch `step` (seed 0) at run's (batch,
+    seq), with a seeded frontier for a family that takes one."""
+    from repro_torch.data import pipeline
+    dcfg = pipeline.LmDataConfig(vocab=cfg.vocab, seq_len=run["seq"],
+                                 global_batch=run["batch"])
+    batch = pipeline.lm_batch(dcfg, step, device=device)
+    frontier = lm_frontier(torch, cfg, run["batch"], gen, device)
+    if frontier is not None:
+        batch["frontier"] = frontier
+    return batch
+
+
+def lm_state_gb(tree) -> float:
+    if isinstance(tree, dict):
+        return sum(lm_state_gb(v) for v in tree.values())
+    return tree.numel() * tree.element_size() / 1e9
+
+
+def lm_train(ck: Checker, cfg, run: dict, what: str, warm: int, timed: int,
+             profile: bool, phase_base: int) -> dict:
+    """train_step (adamw / the config's optimizer, in place) on the card at
+    run's (batch, seq, loss_chunk) from init_params(seed 0), on
+    lm_batch's stream: `warm` steps, then `timed` steps each ended by a
+    device sync; the losses finite; ms a step, tokens/s, peak GiB above
+    the phase's start, parameter and optimizer-state GB; with `profile`,
+    launch_counter.profile_steps over two more steps (device ms, idle
+    share, launches a step, the top kernels); the bound
+    (roofline.lm_train_work)."""
+    torch = ck.torch
+    from repro_torch.launch import launch_counter, roofline
+    from repro_torch.models import model_zoo
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bm = model_zoo.build(cfg, loss_chunk=run["loss_chunk"])
+    params = bm.init_params(gen, device="cuda")
+    opt_state = bm_opt(cfg).init(params)
+    bgen = torch.Generator(device="cuda").manual_seed(1)
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for step in range(warm + timed):
+        batch = lm_train_batch(torch, cfg, run, bgen, step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, met = bm.train_step(params, opt_state, batch,
+                                               step)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    assert all(math.isfinite(x) for x in losses), (what, losses)
+    step_ms = statistics.median(times[warm:]) * 1e3
+    tokens = run["batch"] * run["seq"]
+    ops, nbytes = roofline.lm_train_work(cfg, run["batch"], run["seq"],
+                                         cfg.remat)
+    bound_ms, bound_by = roofline.lm_bound(ops, nbytes)
+    rec = dict(arch=cfg.name, family=cfg.family, layers=cfg.n_layers,
+               d_model=cfg.d_model, dtype=cfg.dtype, optimizer=cfg.optimizer,
+               remat=cfg.remat, **run, params_gb=lm_state_gb(params),
+               opt_state_gb=lm_state_gb(opt_state), losses=losses,
+               step_ms=step_ms, step_ms_all=[t * 1e3 for t in times],
+               tokens_per_s=tokens / (step_ms / 1e3),
+               peak_gib=(peak - phase_base) / 2 ** 30, ops=ops,
+               bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by)
+    if profile:
+        def step_fn(key, state):
+            p, o, i = state
+            b = lm_train_batch(torch, cfg, run, bgen, i)
+            p, o, m = bm.train_step(p, o, b, i)
+            assert math.isfinite(float(m["loss"]))
+            return p, o, i + 1
+        prof, _, _ = launch_counter.profile_steps(
+            step_fn, (params, opt_state, warm + timed), 2)
+        rec.update({k: prof[k] for k in (
+            "wall_ms_per_step", "device_ms_per_step", "idle_share",
+            "device_kernels_per_step")})
+        rec["top_kernels"] = sorted(
+            ((k, v["device_ms"] / 2, v["count"] / 2)
+             for k, v in prof["device_by_kernel"].items()),
+            key=lambda r: -r[1])[:LM_TOP_KERNELS]
+    log(f"lm_train: {what} {cfg.name} L={cfg.n_layers} d={cfg.d_model} "
+        f"{cfg.dtype} {cfg.optimizer} remat={cfg.remat} B={run['batch']} "
+        f"S={run['seq']} loss_chunk={run['loss_chunk']}: params "
+        f"{rec['params_gb']:.3f} GB, optimizer state "
+        f"{rec['opt_state_gb']:.3f} GB; {step_ms:.2f} ms a step (median of "
+        f"{timed} after {warm} warm-up; all "
+        f"{[round(t, 2) for t in rec['step_ms_all']]}), "
+        f"{rec['tokens_per_s']:.0f} tokens/s (bound {bound_ms:.3f} ms, "
+        f"{bound_by}: {ops:.4e} ops, {nbytes:.4e} bytes); peak "
+        f"{rec['peak_gib']:.3f} GiB above the phase's start; losses "
+        f"{[round(x, 4) for x in losses]}"
+        + ("" if not profile else
+           f"; profile of 2 steps: device {rec['device_ms_per_step']} ms, "
+           f"idle {rec['idle_share']}, {rec['device_kernels_per_step']} "
+           f"launches a step, wall {rec['wall_ms_per_step']:.3f} ms; device "
+           f"ms and launches a step by kernel: "
+           + "; ".join(f"{k[:60]} {ms:.3f} x{n:g}"
+                       for k, ms, n in rec["top_kernels"])))
+    del params, opt_state
+    return rec
+
+
+def bm_opt(cfg):
+    from repro_torch.optim import optimizers
+    return optimizers.make(cfg.optimizer)
+
+
+def lm_card_cpu_step(ck: Checker, cfg, run: dict, with_step: bool) -> dict:
+    """train/card_check.card_cpu_step (loss_fn's gradients, and with
+    `with_step` one train_step from a seeded optimizer state, card against
+    CPU) from init_params(seed 0) and lm_batch's batch 0 at run's (batch,
+    seq)."""
+    torch = ck.torch
+    from repro_torch.models import model
+    from repro_torch.train import card_check
+    p_cpu = model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch_cpu = lm_train_batch(torch, cfg, run, torch.Generator(), 0, "cpu")
+    return card_check.card_cpu_step(cfg, p_cpu, batch_cpu, with_step)
+
+
+def lm_train_card_vs_cpu(ck: Checker, cfg) -> dict:
+    """float32, TF32 off, card against CPU (lm_card_cpu_step), each within
+    LM_CPU_TOL: at `cfg` (the published widths) loss_fn's loss and
+    gradients; at the arch's SMOKE config one whole train_step (the
+    optimizer's update over the published widths' ~0.1-0.6e9 parameters
+    takes the CPU tens of seconds an arch).  At SMOKE the step with
+    loss_chunk = LM_CHECK_S // 2, and (not an MoE) with microbatch = 1,
+    must give its plain step's loss and gradient norm within
+    LM_CPU_TOL."""
+    torch = ck.torch
+    from repro_torch.configs import registry
+    from repro_torch.models import model, model_zoo
+    run = dict(batch=LM_CHECK_B, seq=LM_CHECK_S)
+    errs = lm_card_cpu_step(ck, cfg, run, with_step=False)
+    sm = registry.smoke_config(cfg.name).scaled(dtype="float32")
+    errs.update({f"smoke_{k}": v for k, v in
+                 lm_card_cpu_step(ck, sm, run, with_step=True).items()})
+    # microbatching and the chunked loss leave the step's loss and
+    # gradient norm unchanged (SMOKE); an MoE's routing capacity and aux
+    # loss are per microbatch (in the JAX package too), so its microbatched
+    # step is another step and is not held to the plain one
+    ps = model.init_params(sm, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    bs = lm_train_batch(torch, sm, run, torch.Generator(device="cuda")
+                        .manual_seed(2), 0)
+    variants = {"plain": {}, "loss_chunk": dict(loss_chunk=LM_CHECK_S // 2)}
+    if sm.family != "moe":
+        variants["microbatch"] = dict(microbatch=1)
+    steps = {}
+    for name, kw in variants.items():
+        p = {k: v.clone() for k, v in ps.items()}
+        _, _, met = model_zoo.build(sm, **kw).train_step(
+            p, bm_opt(sm).init(p), bs, 0)
+        steps[name] = met
+    for name in variants:
+        if name != "plain":
+            errs[f"smoke_{name}"] = max(
+                lm_rel(steps[name][k], steps["plain"][k])
+                for k in ("loss", "grad_norm"))
+    assert max(errs.values()) <= LM_CPU_TOL, (cfg.name, errs)
+    return errs
+
+
+LM_AGG_LEAVES = ("final_norm", "layers/attn_norm", "layers/mlp_norm",
+                 "layers/wk")
+# columns of the full-shape encode GEMM's check set to p - 1
+LM_AGG_WORST = 1 << 20
+
+
+def lm_train_secure(ck: Checker) -> dict:
+    """train_secure (LM_SECURE) on the card, the field GEMM's launches by
+    path counted over the run; then, on one step's client gradients
+    restricted to LM_AGG_LEAVES (the CPU's threefry emulation takes
+    minutes over all 63M), secure_aggregate on the card against the
+    CPU's on copies: bit for bit.  The thin GEMM of the run's encode, at
+    its full shape, equals its plain version (kernels/ref, on the card)
+    bit for bit, and both are timed beside the bound."""
+    torch = ck.torch
+    from repro_torch.configs import registry
+    from repro_torch.core import random as jrandom
+    from repro_torch.core import secure_agg, shamir
+    from repro_torch.data import pipeline
+    from repro_torch.kernels import modmatmul as mm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import roofline
+    from repro_torch.models import model_zoo
+    from repro_torch.train import trainer
+    run = LM_SECURE
+    cfg = registry.get_config(run["arch"]).scaled(n_layers=run["layers"])
+    sa = secure_agg.SecureAggConfig(n_clients=run["n"], t=run["t"])
+    tcfg = trainer.TrainConfig(steps=run["steps"], global_batch=run["batch"],
+                               seq_len=run["seq"], log_every=1,
+                               secure_agg=sa)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, hist = trainer.train_secure(cfg, tcfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = run_counts()
+    assert counts["gemm:thin"] > 0, counts
+    assert all(math.isfinite(h["loss"]) for h in hist), hist
+    n_params = sum(v.numel() for v in params.values())
+    # the bit-for-bit check on one step's gradients
+    bm = model_zoo.build(cfg)
+    dcfg = pipeline.LmDataConfig(vocab=cfg.vocab, seq_len=run["seq"],
+                                 global_batch=run["batch"])
+    batch = pipeline.lm_batch(dcfg, 0, device="cuda")
+    _, grads = trainer.client_grads(bm, params, batch, sa.n_clients)
+    sub = [{k: g[k] for k in LM_AGG_LEAVES} for g in grads]
+    del grads
+    key = jrandom.fold_in(jrandom.PRNGKey(0), 0)
+    got = secure_agg.secure_aggregate(key, sub, sa)
+    want = secure_agg.secure_aggregate(
+        key, [{k: v.cpu() for k, v in g.items()} for g in sub], sa)
+    for k in LM_AGG_LEAVES:
+        assert torch.equal(got[k].cpu(), want[k]), k
+    agg_elems = sum(v.numel() for v in sub[0].values())
+    # the thin GEMM of the run's encode: power matrix (N, T) @ the
+    # coefficients (T, N x L), L the flat gradient's length
+    pmat = shamir.power_matrix(shamir.default_eval_points(sa.n_clients),
+                               sa.t, "cuda")
+    coeffs = ck.field(sa.t, sa.n_clients * n_params)
+    coeffs[:, :LM_AGG_WORST] = ck.P - 1    # the largest products
+    gshape = f"({sa.n_clients},{sa.t})@({sa.t},{coeffs.shape[1]})"
+    ops.reset_launches()                   # the check's and timing's launches
+    ck.compare_on_card("modmatmul", mm.modmatmul(pmat, coeffs),
+                       ref.modmatmul(pmat, coeffs),
+                       f"train_secure encode {gshape}")
+    gops, gbytes = roofline.gemm_work(tuple(pmat.shape), pmat.stride(),
+                                      tuple(coeffs.shape), coeffs.stride())
+    gbound, gby = bound(gbytes, gops)
+    gms = ck.time_ms(lambda: mm.modmatmul(pmat, coeffs), 5)
+    gdev = device_ms(torch, lambda: mm.modmatmul(pmat, coeffs), 3)
+    gplain = ck.time_ms(lambda: ref.modmatmul(pmat, coeffs), 1)
+    rec = dict(arch=cfg.name, layers=cfg.n_layers, n_clients=sa.n_clients,
+               t=sa.t, steps=run["steps"], batch=run["batch"],
+               seq=run["seq"], params=n_params, wall_s=wall,
+               losses=[h["loss"] for h in hist], launches=counts,
+               agg_check_elements=agg_elems,
+               thin_gemm=dict(shape=[list(pmat.shape), list(coeffs.shape)],
+                              ms=gms, device_ms=gdev, plain_ms=gplain,
+                              bound_ms=gbound, bound_by=gby,
+                              launches=counts["gemm:thin"], equal=True))
+    log(f"lm_train: (d) train_secure {cfg.name} L={cfg.n_layers} "
+        f"({n_params} parameters) N={sa.n_clients} T={sa.t}, "
+        f"{run['steps']} steps of B={run['batch']} S={run['seq']}: "
+        f"{wall:.2f} s, losses {rec['losses']}; launches {counts}; "
+        f"secure_aggregate on the card equal to the CPU's bit for bit over "
+        f"{agg_elems} gradient elements a client; thin GEMM {gshape} "
+        f"equal to its plain version bit for bit: {gms:.4f} ms (CUDA "
+        f"events), device "
+        f"{'not measured' if gdev is None else f'{gdev:.4f}'} ms, plain "
+        f"{gplain:.4f} ms (bound {gbound:.4f} ms, {gby}), "
+        f"{counts['gemm:thin']} thin launches in the run")
+    del params, coeffs, sub, got, want
+    return rec
+
+
+def lm_subprocesses(tmp: Path) -> dict:
+    """launch.train with checkpoints (LM_RESUME): 6 steps, then the same
+    command at 9 steps resumes; its last checkpoint's leaves equal a
+    straight 9-step run's (trainer.train in this process).  launch.dryrun
+    --arch LM_MAIN --shape all --mesh both ends with its success line and
+    prints every cell."""
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.models.config import applicable_shapes
+    from repro_torch.train import checkpoint, trainer
+    r = LM_RESUME
+    base = ("--arch", "smollm-360m", "--batch", str(r["batch"]), "--seq",
+            str(r["seq"]), "--ckpt-every", str(r["ckpt_every"]))
+    t0 = time.perf_counter()
+    run_module("repro_torch.launch.train",
+               base + ("--steps", "6", "--ckpt", str(tmp / "resumed")),
+               "train 6 steps")
+    out = run_module("repro_torch.launch.train",
+                     base + ("--steps", "9", "--ckpt", str(tmp / "resumed")),
+                     "train resumed to 9 steps")
+    assert "restored checkpoint, resuming at step 6" in out, out
+    # the straight run in this process
+    trainer.train(registry.smoke_config("smollm-360m"), trainer.TrainConfig(
+        steps=9, global_batch=r["batch"], seq_len=r["seq"],
+        ckpt_dir=str(tmp / "straight"), ckpt_every=r["ckpt_every"]),
+        device="cuda")
+    last = {}
+    for d in ("resumed", "straight"):
+        ck_ = checkpoint.Checkpointer(str(tmp / d))
+        assert ck_.list_steps()[-1] == 8, (d, ck_.list_steps())
+        path = tmp / d / "step_0000000008"
+        last[d] = [np.load(f) for f in sorted(path.glob("leaf_*.npy"))]
+    assert len(last["resumed"]) == len(last["straight"]) > 0
+    for a, b in zip(last["resumed"], last["straight"]):
+        np.testing.assert_array_equal(a, b)
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out = run_module("repro_torch.launch.dryrun",
+                     ("--arch", LM_MAIN, "--shape", "all", "--mesh", "both"),
+                     "dry run")
+    lines = out.splitlines()
+    assert lines[-1] == "dry-run: all requested cells compiled", lines[-1]
+    cfg = registry.get_config(LM_MAIN)
+    cells = [ln for ln in lines if ln.startswith(f"--- {LM_MAIN} x ")]
+    assert len(cells) == 2 * len(applicable_shapes(cfg)), cells
+    assert sum(ln.startswith("executed:") for ln in lines) == len(cells)
+    log(f"lm_train: (e) launch.train resumed at step 6 ends equal to a "
+        f"straight 9-step run ({len(last['straight'])} leaves, bit for "
+        f"bit), {train_s:.1f} s; launch.dryrun {LM_MAIN} printed "
+        f"{len(cells)} cells, each with its executed SMOKE step, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return dict(resume_leaves=len(last["straight"]), train_s=train_s,
+                dryrun_cells=len(cells), dryrun_lines=lines)
+
+
+def phase_lm_train(ck: Checker) -> dict:
+    """LM training on the card: (a) qwen3-1.7b at full width and depth,
+    (b) every other LM arch at its published widths with LM_DEPTH layers,
+    (c) one arch a family card vs CPU in float32, (d) train_secure, (e)
+    launch.train's resume and launch.dryrun's LM cells in subprocesses."""
+    import gc
+    import tempfile
+    torch = ck.torch
+    from repro_torch.configs import registry
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_base = torch.cuda.memory_allocated()
+    out: dict = {"runs": [], "card_vs_cpu": {}, "part_s": {}}
+    t_part = time.perf_counter()
+
+    def part(name):
+        nonlocal t_part
+        now = time.perf_counter()
+        out["part_s"][name] = now - t_part
+        t_part = now
+    cfg = registry.get_config(LM_MAIN)
+    main = lm_train(ck, cfg, LM_TRAIN_MAIN, "(a) main path", LM_TRAIN_WARM,
+                    LM_TRAIN_TIMED, True, phase_base)
+    assert main["losses"][-1] < main["losses"][0], main["losses"]
+    out["runs"].append(main)
+    part("(a)")
+    for arch in registry.LM_ARCH_IDS:
+        if arch == LM_MAIN:
+            continue
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = registry.get_config(arch).scaled(
+            n_layers=LM_DEPTH.get(arch, 2))
+        out["runs"].append(lm_train(ck, cfg, LM_TRAIN_OTHER, "(b)", 1, 1,
+                                    False, phase_base))
+    part("(b)")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for arch in LM_FAMILY_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = registry.get_config(arch).scaled(
+            n_layers=LM_TRAIN_CHECK_DEPTH.get(arch, 1), dtype="float32")
+        t0 = time.perf_counter()
+        out["card_vs_cpu"][arch] = lm_train_card_vs_cpu(ck, cfg)
+        log(f"lm_train: (c) {arch} L={cfg.n_layers} float32 card vs cpu "
+            f"{out['card_vs_cpu'][arch]} (tol {LM_CPU_TOL}), "
+            f"{time.perf_counter() - t0:.1f} s")
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    part("(c)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["secure"] = lm_train_secure(ck)
+    part("(d)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    OUT_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        out["subprocesses"] = lm_subprocesses(Path(tmp))
+    part("(e)")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"lm_train: phase 13 took {out['seconds']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in out["part_s"].items()) + ")")
+    return out
+
+
 def set_schedule(mode: str) -> None:
     """REPRO_FUSED_STEP for the next fit ("0" siloed, "1" fused)."""
     os.environ["REPRO_FUSED_STEP"] = mode
@@ -2692,6 +3131,9 @@ def main() -> int:
     parser.add_argument("--lm-only", action="store_true",
                         help="build, then phase 12 (LM serving) alone, "
                              "into chiprun_out/chip_smoke_lm.json")
+    parser.add_argument("--lm-train-only", action="store_true",
+                        help="build, then phase 13 (LM training) alone, "
+                             "into chiprun_out/chip_smoke_lm_train.json")
     parser.add_argument("--time-only", metavar="SRC", help=argparse.SUPPRESS)
     args = parser.parse_args()
     import numpy as np
@@ -2712,7 +3154,12 @@ def main() -> int:
     from repro_torch.core.field import P
     from repro_torch.kernels import build
 
-    report: dict = {"device": torch.cuda.get_device_name(0)}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    log(f"card: {smi}")                    # beside every number below
+    report: dict = {"device": torch.cuda.get_device_name(0), "card": smi}
     secs = build.build_all()
     report["build_s"] = secs
     report["ptxas"] = dict(build.BUILD_LOG)
@@ -2734,6 +3181,12 @@ def main() -> int:
         lm = phase_lm(ck)
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "chip_smoke_lm.json").write_text(json.dumps(lm, indent=1))
+        return 0
+    if args.lm_train_only:
+        OUT_DIR.mkdir(exist_ok=True)
+        lm = phase_lm_train(ck)
+        (OUT_DIR / "chip_smoke_lm_train.json").write_text(
+            json.dumps(lm, indent=1))
         return 0
     rows = phase_kernels(ck, args.quick)
     rows.update(phase_kernels_siloed(ck, args.quick))
@@ -2764,6 +3217,7 @@ def main() -> int:
         proc_runs["launch_counter 2 jit steps cifar10_case2"] = \
             launch_counts
         report["lm"] = phase_lm(ck)
+        report["lm_train"] = phase_lm_train(ck)
         for name in FUSED_PATH:
             counts[name] = fused_counts[name]
             path[name] = "fused cifar10_case2"
@@ -2779,6 +3233,10 @@ def main() -> int:
                 **{f"{p} cifar10_case2": c[name]
                    for p, c in report["protocol_launches"].items()},
                 "serve cifar10_case2": report["serve_launches"].get(name, 0)}
+        sec = report["lm_train"]["secure"]
+        by_path["modmatmul"][f"train_secure {sec['arch']} "
+                             f"L={sec['layers']} (thin)"] = \
+            sec["launches"]["gemm:thin"]
         runs = {"fused": fused_counts, **report["protocol_launches"],
                 "serve": report["serve_launches"]}
         for name, (gpath, run) in PATH_ENTRIES.items():
@@ -2816,10 +3274,6 @@ def main() -> int:
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import atexit
 import collections
+import contextlib
 import dataclasses
 import datetime
 import itertools
@@ -47,6 +48,73 @@ import torch.multiprocessing
 
 from ..kernels import build
 from . import field
+
+# ------------------------------------------------ the LM stack's named mesh
+#
+# The JAX package's LM stack names a (data, model) -- or (pod, data, model)
+# -- device mesh, and its sharding rules (sharding/partition.py) and
+# GSPMD hints (maybe_constrain) read the mesh's axis sizes.  The port keeps
+# the mesh as a value: axis names and sizes, no process group and no
+# devices (the port's LM trainer runs on one card, where the mesh is 1x1;
+# the dry run prices the production meshes from their sizes alone).
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A named device mesh: .shape (axis -> size, in axis order),
+    .axis_names and .size."""
+    axis_names: tuple
+    sizes: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for s in self.sizes:
+            n *= s
+        return n
+
+
+def make_mesh(shape, axes) -> Mesh:
+    """The mesh of `shape` over axis names `axes`."""
+    shape, axes = tuple(int(s) for s in shape), tuple(axes)
+    if len(shape) != len(axes) or min(shape, default=1) < 1:
+        raise ValueError(f"mesh shape {shape} for axes {axes}")
+    return Mesh(axes, shape)
+
+
+_ACTIVE: list = []
+
+
+@contextlib.contextmanager
+def set_mesh(mesh: Mesh):
+    """Context manager making `mesh` the active one (active_mesh())."""
+    _ACTIVE.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE.pop()
+
+
+def active_mesh():
+    """The innermost set_mesh's mesh, or None."""
+    return _ACTIVE[-1] if _ACTIVE else None
+
+
+def maybe_constrain(x, *spec):
+    """The JAX package's GSPMD sharding hint (spec: one entry a dimension).
+    The port partitions no step, so under no mesh or a one-device mesh
+    (set_mesh) it is the identity; under a larger mesh it raises rather
+    than leave the step unsharded without a word."""
+    mesh = active_mesh()
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"sharding {spec} over a mesh of {mesh.size} devices: the port "
+            f"runs a step on one device")
+    return x
 
 # name of the 1-D mesh axis the sharded engine splits clients over
 CLIENT_AXIS = "clients"

@@ -9,8 +9,10 @@ That package uses `jax.random` with the NON-partitionable threefry layout
   split(key, n)   hash of iota(2n), reshaped (n, 2)          (_threefry_split_original)
   fold_in(key, x) hash of [0, x]                             (threefry_fold_in)
   randint         two 32-bit draws combined mod span         (random._randint)
-  uniform         23 random mantissa bits of one 32-bit draw (random._uniform)
-  categorical     argmax(logits + Gumbel(uniform))           (random.categorical)
+  uniform         float32: 23 mantissa bits of a 32-bit draw (random._uniform)
+                  bf16: 7 bits of an 8-bit draw              (prng random_bits)
+  categorical     argmax(logits + Gumbel(uniform)) in the    (random.categorical)
+                  logits' type
 
 A key is a (2,) int64 tensor holding two uint32 words.  Keys are derived
 on the host with Python ints (a split is a handful of hashes), so a key
@@ -202,33 +204,119 @@ def bits32(key, shape, *, device="cpu") -> torch.Tensor:
     return torch.cat([w0, w1])[:n].reshape(shape)
 
 
+def bits(key, shape, width: int = 32, *, device="cpu") -> torch.Tensor:
+    """jax's legacy random_bits at `width` 8, 16 or 32 bits, as int64
+    values in [0, 2^width): ceil(width * n / 32) words are hashed as in
+    bits32, and word i gives elements (32/width) * i + j, j = 0, 1, ...,
+    as its j-th `width`-bit group counted from the least significant bit;
+    the last word's unused groups are dropped."""
+    if width not in (8, 16, 32):
+        raise ValueError(f"bit width 8, 16 or 32, got {width}")
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    if width == 32:
+        return bits32(key, shape, device=device)
+    per = 32 // width
+    words = bits32(key, (-(-n // per),), device=device)
+    shifts = torch.arange(per, dtype=torch.int64, device=device) * width
+    out = (words[:, None] >> shifts) & ((1 << width) - 1)
+    return out.reshape(-1)[:n].reshape(shape)
+
+
 _F32_TINY = float(np.finfo(np.float32).tiny)
+_BF16_ONE = 0x3F80
 
 
-def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0, *,
-            device="cpu") -> torch.Tensor:
-    """jax.random.uniform(key, shape, float32, minval, maxval): the draw's
-    top 23 bits as the mantissa of a float in [1, 2), minus 1, scaled
-    and shifted in float32, and floored at minval."""
-    bits = bits32(key, shape, device=device)
+def _round_f32_once(exact_hi, exact_lo):
+    """float32(exact_hi + exact_lo) rounded once, to nearest even.
+
+    exact_hi + exact_lo is the exact value (float64 TwoSum pair,
+    |exact_lo| below half an ulp of exact_hi).  Casting exact_hi alone can
+    round twice: when exact_hi is a float32 midpoint, exact_lo's sign
+    decides the side."""
+    r = exact_hi.to(torch.float32)
+    up = torch.nextafter(r, torch.full_like(r, math.inf))
+    dn = torch.nextafter(r, torch.full_like(r, -math.inf))
+    rd = r.double()
+    at_up = exact_hi == (rd + up.double()) * 0.5
+    at_dn = exact_hi == (rd + dn.double()) * 0.5
+    r = torch.where(at_up & (exact_lo > 0), up, r)
+    return torch.where(at_dn & (exact_lo < 0), dn, r)
+
+
+def uniform(key, shape, minval: float = 0.0, maxval: float = 1.0,
+            dtype=torch.float32, *, device="cpu") -> torch.Tensor:
+    """jax.random.uniform(key, shape, dtype, minval, maxval) for float32
+    or bfloat16, as the JAX package's CPU lowering computes it.
+
+    float32: the draw's top 23 bits as the mantissa of a float in [1, 2),
+    minus 1; then floats * (hi - lo) + lo with ONE rounding (XLA:CPU
+    contracts the multiply-add into an FMA; hi - lo is rounded to float32
+    first), floored at lo.  The product of two float32 values is exact in
+    float64, the sum is split into its float64 value and exact remainder
+    (TwoSum), and _round_f32_once rounds the pair.
+
+    bfloat16: jax draws 8-bit words for a type of fewer than 8 mantissa
+    bits; 7 of them (the word >> 1) fill the mantissa of a bf16 in [1, 2).
+    Every operation after that is rounded to bf16 (XLA:CPU computes a bf16
+    op in float32 and converts back, op by op): - 1, * (hi - lo), + lo,
+    max(lo, .)."""
+    if dtype == torch.bfloat16:
+        return _uniform_bf16(key, shape, minval, maxval, device)
+    if dtype != torch.float32:
+        raise ValueError(f"uniform draws float32 or bfloat16, not {dtype}")
+    raw = bits32(key, shape, device=device)
     one = int(np.array(1.0, np.float32).view(np.int32))
-    floats = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
-    return torch.maximum(lo, floats * (hi - lo) + lo)
+    floats = ((raw >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
+    lo32, hi32 = np.float32(minval), np.float32(maxval)
+    span = float(np.float32(hi32 - lo32))
+    lo = float(lo32)
+    prod = floats.double() * span                 # exact
+    s = prod + lo
+    bv = s - prod                                 # TwoSum remainder
+    err = (prod - (s - bv)) + (lo - bv)
+    out = _round_f32_once(s, err)
+    return torch.clamp_min(out, lo32.item())
 
 
-def gumbel(key, shape, *, device="cpu") -> torch.Tensor:
-    """jax.random.gumbel(key, shape, float32) in its default "low" mode:
-    -log(-log(uniform(tiny, 1)))."""
-    u = uniform(key, shape, _F32_TINY, 1.0, device=device)
+def _bf16(x):
+    """Round float32 values to bf16 and back (one XLA:CPU bf16 op)."""
+    return x.to(torch.bfloat16).float()
+
+
+def _uniform_bf16(key, shape, minval, maxval, device):
+    raw = bits(key, shape, 8, device=device)
+    floats = ((raw >> 1) | _BF16_ONE).to(torch.int16).view(torch.bfloat16)
+    lo = float(torch.tensor(minval, dtype=torch.bfloat16))
+    hi = float(torch.tensor(maxval, dtype=torch.bfloat16))
+    span = float(torch.tensor(hi - lo, dtype=torch.float32).to(
+        torch.bfloat16))
+    x = _bf16(floats.float() - 1.0)
+    x = _bf16(x * span)
+    x = _bf16(x + lo)
+    return torch.clamp_min(x, lo).to(torch.bfloat16)
+
+
+def gumbel(key, shape, dtype=torch.float32, *, device="cpu") -> torch.Tensor:
+    """jax.random.gumbel(key, shape, dtype) in its default "low" mode:
+    -log(-log(uniform(tiny, 1))), tiny the dtype's smallest normal.  In
+    bfloat16 each log and negation is a float32 op rounded back to bf16,
+    as XLA:CPU lowers it."""
+    if dtype == torch.bfloat16:
+        u = _uniform_bf16(key, shape, _F32_TINY, 1.0, device).float()
+        return (-_bf16(torch.log(-_bf16(torch.log(u))))).to(torch.bfloat16)
+    u = uniform(key, shape, _F32_TINY, 1.0, dtype, device=device)
     return -torch.log(-torch.log(u))
 
 
 def categorical(key, logits: torch.Tensor) -> torch.Tensor:
     """jax.random.categorical(key, logits) over the last axis (the Gumbel
-    max trick).  The noise is drawn in float32 and the logits are widened
-    to it: jax draws in the logits' own type, so only float32 logits give
-    jax's samples."""
+    max trick), drawn in the logits' type as jax draws it: float32 or
+    bfloat16 (whose noise and sum are bf16, each sum a float32 add
+    rounded back)."""
+    if logits.dtype == torch.bfloat16:
+        g = gumbel(key, tuple(logits.shape), torch.bfloat16,
+                   device=logits.device)
+        return torch.argmax(_bf16(g.float() + logits.float()), dim=-1)
     g = gumbel(key, tuple(logits.shape), device=logits.device)
     return torch.argmax(g + logits.float(), dim=-1)

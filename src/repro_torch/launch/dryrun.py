@@ -1,4 +1,4 @@
-"""Dry run: the copml-logreg cells at the production meshes.
+"""Dry run: every arch's cells at the production meshes.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch copml-logreg \\
         --shape train_4k --mesh pod
@@ -10,8 +10,12 @@ one real step at --execute-ranks ranks (0: the model alone); see
 launch/copml_dist.py.  The modelled numbers are a model of a mesh this
 machine does not have; the executed step's are measured.  --out writes
 one JSON a cell.  Every requested cell is reported; a failing cell is
-reported and the run goes on, then exits 1.  The LM archs are skipped
-(SKIP lines, exit 0): their dry run comes with the LM training slice.
+reported and the run goes on, then exits 1.
+
+The LM archs' cells (launch/lm_dryrun.py) take the LM shapes (train_4k,
+prefill_32k, decode_32k, and long_500k where the arch is sub-quadratic;
+a SKIP line otherwise): a model of one rank of the mesh, and with
+--execute-ranks > 0 one SMOKE step of the cell's kind run on the device.
 """
 
 import argparse
@@ -21,21 +25,26 @@ import sys
 import time
 
 from ..configs import registry
-from . import copml_dist
+from . import copml_dist, lm_dryrun
 from . import mesh as mesh_lib
 
 SHAPES = ("smoke", "train_4k", "prefill_32k", "decode_32k", "long_500k")
-LM_SKIP = "LM dry-run comes with the LM training slice"
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir=None,
              execute_ranks: int = 4, device=None) -> dict:
     t0 = time.perf_counter()
     ranks = mesh_lib.production_ranks(multi_pod=multi_pod)
-    if arch != "copml-logreg":
+    if arch in registry.LM_ARCH_IDS:
+        rec = lm_dryrun.dryrun_cell(arch, shape_name, multi_pod,
+                                    execute_ranks=execute_ranks,
+                                    device=device)
+    elif arch == "copml-logreg":
+        rec = copml_dist.dryrun_cell(shape_name, ranks, multi_pod,
+                                     execute_ranks=execute_ranks,
+                                     device=device)
+    else:
         raise ValueError(f"no dry-run cell for arch {arch!r}")
-    rec = copml_dist.dryrun_cell(shape_name, ranks, multi_pod,
-                                 execute_ranks=execute_ranks, device=device)
     rec["wall_s"] = time.perf_counter() - t0
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -68,10 +77,10 @@ def main(argv=None):
               "both": (False, True)}[args.mesh]
     failures = []
     for arch in archs:
-        if arch in registry.LM_ARCH_IDS:
-            print(f"SKIP {arch}: {LM_SKIP}")
-            continue
-        for shape in shapes:
+        arch_shapes = shapes
+        if arch in registry.LM_ARCH_IDS and len(shapes) > 1:
+            arch_shapes = tuple(lm_dryrun.SHAPES)    # "all": the LM shapes
+        for shape in arch_shapes:
             for mp in meshes:
                 try:
                     rec = run_cell(arch, shape, mp, args.out,

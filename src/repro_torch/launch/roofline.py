@@ -1,5 +1,5 @@
-"""Roofline terms of a COPML step, and of an LM serving step, on NVIDIA
-H100 (SXM) cards.
+"""Roofline terms of a COPML step, and of an LM step, on NVIDIA H100 (SXM)
+cards.
 
 Per (shape x mesh):
   compute term    = ops / (chips * FIELD_OPS_PER_S)
@@ -17,8 +17,9 @@ kernel implements the step.
 The elementwise torch ops of a step (the threefry emulation, field adds)
 are not field-kernel launches and are not counted.
 
-An LM serving step (`lm_prefill_work`, `lm_decode_work`, `lm_bound`) is
-priced from its config and shapes: bytes are every weight the step needs
+An LM step (`lm_prefill_work`, `lm_decode_work`, `lm_train_work`,
+`lm_bound`) is priced from its config and shapes (`model_flops` is the
+JAX package's useful-work count): bytes are every weight the step needs
 read once (an MoE layer's experts only as many as its tokens can route
 to, min(n_experts, tokens x top_k)), the K/V and state caches written
 (prefill) or read (decode: the whole cache, as decode_attention reads
@@ -277,18 +278,15 @@ def _state_bytes(cfg, batch: int) -> float:
     return cfg.n_layers * batch * (conv + cfg.d_inner * cfg.ssm_state * 4)
 
 
-def lm_prefill_work(cfg, batch: int, s0: int) -> tuple:
-    """(operations, bytes) of prefill_step on (batch, s0) prompts: the
-    products of every token through the layers (vlm: the patch prefix
-    too), the last position's logits, causal self-attention (S(S+1)/2
-    pairs), whisper's encoder and cross-attention; every weight the
-    tokens need read once and the caches written.  The state-space scans' elementwise operations
-    are left out (a lower bound)."""
-    t = _lm_terms(cfg)
+def _forward_ops(cfg, t: dict, batch: int, s0: int, logit_rows: int):
+    """Operations of one forward over (batch, s0) tokens: the products of
+    every token through the layers (vlm: the patch prefix too),
+    `logit_rows` positions' logits a sequence, causal self-attention
+    (S(S+1)/2 pairs), whisper's encoder and cross-attention."""
     seq = s0 + (cfg.n_patches if cfg.family == "vlm" else 0)
     tokens = batch * seq
-    macs = tokens * (t["layer"] + t["shared"]) + batch * cfg.vocab * \
-        cfg.d_model
+    macs = tokens * (t["layer"] + t["shared"]) + batch * logit_rows * \
+        cfg.vocab * cfg.d_model
     attn = 4 * batch * cfg.n_heads * cfg.hd
     ops = 2 * macs + attn * _attn_layers(cfg) * seq * (seq + 1) / 2
     if cfg.family == "vlm":
@@ -297,9 +295,74 @@ def lm_prefill_work(cfg, batch: int, s0: int) -> tuple:
         se = cfg.encoder_seq
         ops += 2 * batch * se * (t["encoder"] + t["cross_kv"])
         ops += attn * (cfg.encoder_layers * se * se + cfg.n_layers * seq * se)
-    nbytes = _weight_bytes(cfg, t, tokens) + _kv_bytes(cfg, batch, seq) + \
-        _state_bytes(cfg, batch)
+    return ops
+
+
+def lm_prefill_work(cfg, batch: int, s0: int) -> tuple:
+    """(operations, bytes) of prefill_step on (batch, s0) prompts: a
+    forward (_forward_ops) with the last position's logits; every weight
+    the tokens need read once and the caches written.  The state-space
+    scans' elementwise operations are left out (a lower bound)."""
+    t = _lm_terms(cfg)
+    seq = s0 + (cfg.n_patches if cfg.family == "vlm" else 0)
+    ops = _forward_ops(cfg, t, batch, s0, 1)
+    nbytes = _weight_bytes(cfg, t, batch * seq) + \
+        _kv_bytes(cfg, batch, seq) + _state_bytes(cfg, batch)
     return ops, nbytes
+
+
+def opt_state_bytes(cfg) -> float:
+    """Bytes of the config's optimizer state (float32): adamw two moments
+    a parameter, sgdm one, adafactor a row and a column statistic a >= 2-D
+    parameter and one moment a vector."""
+    from ..models.model import param_table
+    total = 0
+    for par in param_table(cfg).values():
+        numel = 1
+        for n in par.shape:
+            numel *= n
+        if cfg.optimizer == "adamw":
+            total += 2 * numel
+        elif cfg.optimizer == "sgdm":
+            total += numel
+        elif len(par.shape) >= 2:
+            total += numel // par.shape[-1] + numel // par.shape[-2]
+        else:
+            total += numel
+    return 4.0 * total
+
+
+def lm_train_work(cfg, batch: int, seq: int, remat: bool = True) -> tuple:
+    """(operations, bytes) of one train_step on (batch, seq) tokens.
+
+    Operations: the forward with every position's logits, three times
+    (the forward, and backward's two products a forward product: the
+    input's gradient and the weight's), and once more under remat (the
+    layers recomputed in backward).  Bytes: the weights read and their
+    gradients written (the parameters' types; all experts of an MoE
+    layer, since a batch of training tokens routes to every expert), and
+    the optimizer state read and written once."""
+    t = _lm_terms(cfg)
+    ops = _forward_ops(cfg, t, batch, seq, seq) * (4 if remat else 3)
+    nbytes = 2 * t["weight_bytes"] + 2 * opt_state_bytes(cfg)
+    return ops, nbytes
+
+
+def model_flops(cfg, shape) -> float:
+    """MODEL_FLOPS (the JAX package's launch/roofline.py): 6 N D for
+    training (N active parameters for MoE); prefill 2 N a token (forward
+    only); decode 2 N a token plus the K/V attention term."""
+    n_active = cfg.active_param_count()
+    if shape.kind == "train":
+        return 6.0 * n_active * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n_active * shape.global_batch * shape.seq_len
+    tokens = shape.global_batch
+    attn = 0.0
+    if cfg.n_heads:
+        attn = (4.0 * cfg.n_layers * cfg.n_heads * cfg.hd * shape.seq_len
+                * tokens)
+    return 2.0 * n_active * tokens + attn
 
 
 def lm_decode_work(cfg, batch: int, cache_len: int) -> tuple:

@@ -3,8 +3,15 @@
 Params are a flat dict name -> tensor, with the JAX package's names;
 per-layer params are stacked on a leading n_layers axis ("layers/...")
 and a forward pass loops over that axis (the JAX package scans it).
-`Par.spec` keeps the JAX package's PartitionSpec axes, for the training
-slice's sharding rules; nothing here reads it.
+`Par.spec` keeps the JAX package's PartitionSpec axes (`param_specs`),
+which sharding/partition.py reads.
+
+Training runs the same forward under autograd, with
+`collect_cache=False`: the per-layer K/V are not kept (a loss needs none
+of them), and with `cfg.remat` each layer is recomputed in backward
+(torch.utils.checkpoint, non-reentrant) where the JAX package puts
+jax.checkpoint: the encoder's layers, the hybrid's inner layers and the
+layer loop.  Recomputation applies only while grad is enabled.
 
 Decode updates the caches in place: each layer's new K/V entries (and a
 state-space layer's new conv and ssm states) are written into the cache
@@ -20,6 +27,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.protocol import resolve_device
 from . import common, moe as moe_lib, ssm as ssm_lib
@@ -186,6 +194,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return out
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """name -> the parameter's spec: a tuple of mesh axis names (or None)
+    a dimension, the JAX package's PartitionSpec entries."""
+    return {k: tuple(v.spec) for k, v in param_table(cfg).items()}
+
+
 # ------------------------------------------------ weights from the JAX package
 
 def _tensor_from_numpy(arr, dtype: torch.dtype, device, what: str):
@@ -199,8 +213,8 @@ def _tensor_from_numpy(arr, dtype: torch.dtype, device, what: str):
         return t.view(torch.bfloat16).to(device)
     if kind != "float32":
         raise ValueError(f"{what}: dtype {kind}, want float32 or bfloat16")
-    return torch.from_numpy(np.array(arr, copy=True)).to(device=device,
-                                                         dtype=dtype)
+    return torch.from_numpy(np.array(arr, copy=True, order="C")).to(
+        device=device, dtype=dtype)
 
 
 def params_from_jax(cfg: ModelConfig, params_np: dict, device=None) -> dict:
@@ -346,6 +360,15 @@ def _layer_params(params: dict, prefix: str = "layers/") -> dict:
             if k.startswith(prefix)}
 
 
+def _per_layer(lp: dict, n: int) -> list:
+    """The stacked per-layer params as one dict a layer.  The stacks are
+    unbound once: in backward that is one stack of the layers' gradients
+    a leaf, where indexing each layer would add a full-size zero-padded
+    gradient a layer (L full-size adds a leaf)."""
+    rows = {k: v.unbind(0) for k, v in lp.items()}
+    return [{k: r[i] for k, r in rows.items()} for i in range(n)]
+
+
 def _index(tree, i):
     """tree[i] on every tensor of a nested tuple (None stays None)."""
     if tree is None:
@@ -371,16 +394,26 @@ def logits_from_h(params, h):
     return torch.matmul(h, params["embed"].t())
 
 
+def _remat(cfg, fn, *args):
+    """fn(*args), recomputed in backward when cfg.remat and grad is on."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def encode_frames(cfg, params, frames):
     """Whisper encoder over STUB frame embeddings (B, Se, d)."""
     pos = _sinusoid(cfg, frames.shape[1], frames.device).to(frames.dtype)
     h = frames + pos[None]
     lp = _layer_params(params, "enc_layers/")
-    for i in range(cfg.encoder_layers):
-        p = {k: v[i] for k, v in lp.items()}
+
+    def body(p, h):
         a, _ = _attention(cfg, p, h, causal=False)
         h = h + a
-        h = h + _mlp(cfg, p, h, gelu=True)
+        return h + _mlp(cfg, p, h, gelu=True)
+
+    for p in _per_layer(lp, cfg.encoder_layers):
+        h = _remat(cfg, body, p, h)
     return common.rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
@@ -393,14 +426,17 @@ def _sinusoid(cfg, s, device=None):
 
 
 def forward(cfg: ModelConfig, params: dict, tokens, *,
-            frontier=None, caches=None, pos=None):
+            frontier=None, caches=None, pos=None, collect_cache=True):
     """Full forward.  tokens: (B, S) ints.
 
     frontier: modality input -- whisper frames (B,Se,d) / vlm patches
     (B,Np,d) / None.  caches: decode caches (nested tuples) or None.
-    pos: decode position (int) or None.
+    pos: decode position (int) or None.  collect_cache=False (no caches
+    given): the per-layer prefill cache is not kept and None is returned
+    in its place.
     Returns (hidden (B,S,d), new_caches or per-layer prefill cache, aux).
     """
+    keep = caches is not None or collect_cache
     dev = tokens.device
     h = _embed_tokens(params, tokens).to(cfg.torch_dtype)
     q_offset = 0 if pos is None else pos
@@ -434,16 +470,24 @@ def forward(cfg: ModelConfig, params: dict, tokens, *,
         shared = {k[len("shared_attn/"):]: v for k, v in params.items()
                   if k.startswith("shared_attn/")}
         m_caches, a_caches = (None, None) if caches is None else caches
+        layers = _per_layer(lp, cfg.n_layers)
         new_m, new_a = [], []
+
+        def inner(p, h):
+            return _layer(cfg, p, h, None, pos)[0]
+
         for gi in range(groups):
             nc_g = []
             for j in range(cfg.attn_every):
                 li = gi * cfg.attn_every + j
-                p = {k: v[li] for k, v in lp.items()}
+                p = layers[li]
                 c = None if m_caches is None else _index(_index(m_caches, gi),
                                                          j)
-                h, nc, _ = _layer(cfg, p, h, c, pos)
-                nc_g.append(nc)
+                if keep:
+                    h, nc, _ = _layer(cfg, p, h, c, pos)
+                    nc_g.append(nc)
+                else:
+                    h = _remat(cfg, inner, p, h)
             new_m.append(nc_g)
             ac = _index(a_caches, gi)
             a, akv = _attention(cfg, shared, h, causal=True, cache=ac,
@@ -451,15 +495,28 @@ def forward(cfg: ModelConfig, params: dict, tokens, *,
                                 q_offset=q_offset)
             h = h + a
             h = h + _mlp(cfg, shared, h)
-            new_a.append(akv)
+            if keep:
+                new_a.append(akv)
         new_caches = caches if caches is not None else \
-            (_stack([_stack(g) for g in new_m]), _stack(new_a))
+            (_stack([_stack(g) for g in new_m]), _stack(new_a)) if keep \
+            else None
         h = common.rms_norm(h, params["final_norm"], cfg.norm_eps)
         return h, new_caches, aux_total
 
+    def body(p, h):
+        """One layer without caches: (h, aux)."""
+        if cfg.family == "encdec":
+            return _encdec_layer(cfg, p, h, None, pos, q_offset, enc_out)[0], \
+                torch.zeros((), dtype=torch.float32, device=dev)
+        h, _, a = _layer(cfg, p, h, None, pos, window=cfg.window)
+        return h, a
+
     new = []
-    for li in range(cfg.n_layers):
-        p = {k: v[li] for k, v in lp.items()}
+    for li, p in enumerate(_per_layer(lp, cfg.n_layers)):
+        if not keep:
+            h, a = _remat(cfg, body, p, h)
+            aux_total = aux_total + a
+            continue
         c = _index(caches, li)
         if cfg.family == "encdec":
             h, nc = _encdec_layer(cfg, p, h, c, pos, q_offset, enc_out)
@@ -467,7 +524,8 @@ def forward(cfg: ModelConfig, params: dict, tokens, *,
             h, nc, a = _layer(cfg, p, h, c, pos, window=cfg.window)
             aux_total = aux_total + a
         new.append(nc)
-    new_caches = caches if caches is not None else _stack(new)
+    new_caches = caches if caches is not None else \
+        _stack(new) if keep else None
     h = common.rms_norm(h, params["final_norm"], cfg.norm_eps)
     if n_prefix:
         h = h[:, n_prefix:]

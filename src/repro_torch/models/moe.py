@@ -63,5 +63,7 @@ def moe_forward(p, x, cfg):
 
     gathered = y[gate_i, pos_c]                               # (T, k, d)
     wts = torch.where(keep, gate_w, 0.0)[..., None].to(x.dtype)
-    out = torch.sum(gathered * wts, dim=1)
+    # XLA fuses the weighting into the sum: the products stay float32 and
+    # only the sum is rounded to x's type
+    out = torch.sum(gathered.float() * wts.float(), dim=1).to(x.dtype)
     return out.reshape(b, s, d), aux

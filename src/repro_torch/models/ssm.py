@@ -10,6 +10,8 @@ context length.
 
 from __future__ import annotations
 
+import math
+
 from typing import Optional
 
 import torch
@@ -48,8 +50,14 @@ def _ssm_scan(decay, inp, h0):
     h0: (B, ...).  Returns (ys (B, S, ...), h_S).
     """
     s = inp.shape[1]
-    ys = torch.empty(inp.shape, dtype=inp.dtype, device=inp.device)
     h = h0
+    if torch.is_grad_enabled():             # autograd: no in-place writes
+        hs = []
+        for t in range(s):
+            h = decay[:, t] * h + inp[:, t]
+            hs.append(h)
+        return torch.stack(hs, dim=1), h
+    ys = torch.empty(inp.shape, dtype=inp.dtype, device=inp.device)
     for t in range(s):
         h = decay[:, t] * h + inp[:, t]
         ys[:, t] = h
@@ -166,8 +174,12 @@ def mamba2_forward(p, x, cfg, cache=None, chunk: int = 128):
     diff = la[:, :, :, None, :] - la[:, :, None, :, :]        # (B,nc,i,j,nh)
     causal = torch.tril(torch.ones((c, c), dtype=torch.bool,
                                    device=x.device))
-    scores = torch.where(causal[None, None, :, :, None],
-                         torch.exp(diff), 0.0) * cb[..., None]
+    # the upper triangle is masked BEFORE the exp: exp(-inf) = 0 gives the
+    # JAX package's values, and its gradient stays 0 where exp(diff) would
+    # overflow (the JAX package masks after the exp, so its gradient is
+    # 0 * inf = NaN once a chunk's decay sum passes ~88)
+    scores = torch.exp(torch.where(causal[None, None, :, :, None], diff,
+                                   -math.inf)) * cb[..., None]
     y_intra = torch.einsum("bkijh,bkjhp->bkihp", scores, bx)
 
     # per-chunk state contribution + inter-chunk recurrence

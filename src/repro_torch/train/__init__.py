@@ -1,1 +1,3 @@
-"""Training-side utilities: straggler budgets and fault-plan validation."""
+"""Training: the LM trainer (checkpoint/restart, secure aggregation),
+checkpoints, elastic re-meshing, straggler budgets and fault-plan
+validation."""

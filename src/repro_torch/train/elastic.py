@@ -6,9 +6,10 @@ shares.  `straggler_budget` reports how many clients a configuration can
 lose per step at zero recovery cost; `validate_budget` turns that budget
 into a hard check that api.fit(..., faults=plan) runs before any compute.
 
-(Re-meshing on restart, the JAX package's replan_shape / replan_mesh, serves
-only its LM trainer's 2-D (data, model) mesh; it comes with the port of the
-LM stack, ROADMAP Queue A item 5.)
+Re-meshing on restart: a checkpoint holds whole logical arrays
+(train/checkpoint.py), so it restores onto any mesh; `replan_mesh` picks
+the closest valid (data, model) factorization for the surviving device
+count.
 """
 
 from __future__ import annotations
@@ -17,7 +18,24 @@ import dataclasses
 
 import numpy as np
 
-from ..core import lagrange
+from ..core import lagrange, meshutil
+
+
+def replan_shape(n_devices: int, prefer_model: int = 16) -> tuple:
+    """The factorization behind replan_mesh: the largest (data, model) with
+    model | prefer_model that divides n_devices (non-power-of-two counts
+    fall through to the largest fitting divisor; odd counts end at
+    model = 1)."""
+    model = prefer_model
+    while model > 1 and (n_devices % model or model > n_devices):
+        model //= 2
+    return n_devices // model, model
+
+
+def replan_mesh(n_devices: int, prefer_model: int = 16) -> meshutil.Mesh:
+    """The largest (data, model) mesh with model | prefer_model that fits."""
+    data, model = replan_shape(n_devices, prefer_model)
+    return meshutil.make_mesh((data, model), ("data", "model"))
 
 
 @dataclasses.dataclass(frozen=True)

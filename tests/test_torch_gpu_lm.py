@@ -1,7 +1,10 @@
-"""repro_torch's LM serving on a CUDA card, against the same code on the
-CPU: every LM arch at its SMOKE config in float32 (TF32 off), prefill and
-one decode step's logits and caches within 1e-4 of the largest CPU value,
-and generate's greedy tokens equal.
+"""repro_torch's LM serving and training on a CUDA card, against the same
+code on the CPU: every LM arch at its SMOKE config in float32 (TF32 off),
+prefill and one decode step's logits and caches within 1e-4 of the
+largest CPU value, generate's greedy tokens equal; loss_fn's gradients and
+one train_step's update and optimizer state within 1e-4 of each leaf's
+largest CPU value; lm_batch, float32 uniform at minval 1e-6 and the bf16
+Gumbel noise and samples bit for bit.
 
 These tests import no JAX (the card's machine need not have it), are marked
 `gpu`, and skip where no card is present.  On a card:
@@ -12,7 +15,10 @@ import pytest
 import torch
 
 from repro_torch.configs import registry
+from repro_torch.core import random as jrandom
+from repro_torch.data import pipeline
 from repro_torch.models import lm_serving, model, model_zoo
+from repro_torch.train import card_check
 
 pytestmark = pytest.mark.gpu
 
@@ -85,3 +91,40 @@ def test_greedy_generate_on_the_card_equals_the_cpu(cuda, arch):
         scfg, frontier=frontier)
     assert got.is_cuda and torch.equal(got.cpu(), want)
     assert stats["tokens_per_s"] > 0
+
+
+@pytest.mark.parametrize("arch", registry.LM_ARCH_IDS)
+def test_train_step_on_the_card_equals_the_cpu(cuda, arch):
+    """train/card_check.card_cpu_step: loss_fn's loss and gradients, one
+    train_step's loss, gradient norm, update (one float32 ulp of the new
+    value allowed an element) and optimizer state, each within RTOL."""
+    cfg, params, tokens, frontier = _setup(arch)
+    batch = {"tokens": tokens[:, :S], "labels": tokens[:, 1:],
+             "mask": torch.ones((B, S))}
+    if frontier is not None:
+        batch["frontier"] = frontier
+    errs = card_check.card_cpu_step(cfg, params, batch)
+    assert max(errs.values()) < RTOL, errs
+
+
+def test_lm_batch_on_the_card_equals_the_cpu(cuda):
+    dcfg = pipeline.LmDataConfig(vocab=151936, seq_len=1024, global_batch=8)
+    got = pipeline.lm_batch(dcfg, 3, device=cuda)
+    want = pipeline.lm_batch(dcfg, 3, device="cpu")
+    for k in want:
+        assert got[k].is_cuda and torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_random_draws_on_the_card_equal_the_cpu(cuda):
+    key = jrandom.split(jrandom.PRNGKey(11))[1]
+    for minval in (1e-6, -2.0):
+        got = jrandom.uniform(key, (9, 1001), minval, device=cuda)
+        want = jrandom.uniform(key, (9, 1001), minval)
+        assert torch.equal(got.cpu(), want), minval
+    got = jrandom.gumbel(key, (40001,), torch.bfloat16, device=cuda)
+    want = jrandom.gumbel(key, (40001,), torch.bfloat16)
+    assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16))
+    logits = torch.randn((64, 1000), generator=torch.Generator()
+                         .manual_seed(4)).to(torch.bfloat16)
+    assert torch.equal(jrandom.categorical(key, logits.to(cuda)).cpu(),
+                       jrandom.categorical(key, logits))

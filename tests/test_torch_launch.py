@@ -361,8 +361,9 @@ def test_launch_counter_on_cpu_steps(monkeypatch, mode, kernel):
 
 def test_registry_and_production_meshes(capsys):
     """The registry holds the JAX package's archs in its order, each
-    config equal to the JAX package's field by field; the launch CLIs
-    refuse the LM archs (training) or skip them (dry run, exit 0)."""
+    config equal to the JAX package's field by field; launch.train runs an
+    LM arch (its LM route); the dry run reports an LM cell for every arch
+    x applicable shape and no `SKIP <arch>` line."""
     import dataclasses
 
     from repro.configs import registry as jregistry
@@ -380,17 +381,23 @@ def test_registry_and_production_meshes(capsys):
     assert registry.smoke_config("copml-logreg") is copml_logreg.SMOKE
     with pytest.raises(ValueError):
         registry.get_config("gpt-5")
-    with pytest.raises(SystemExit) as exc:
-        train.main(["--arch", "qwen3-1.7b", "--device", "cpu"])
-    assert exc.value.code == 2
-    assert "LM training comes with the LM training slice" in \
-        capsys.readouterr().err
+    train.main(["--arch", "qwen3-1.7b", "--device", "cpu", "--steps", "2",
+                "--batch", "2", "--seq", "8"])
+    assert capsys.readouterr().out.splitlines()[-1].startswith(
+        "final loss: ")
     dryrun.main(["--all", "--execute-ranks", "0"])
     lines = capsys.readouterr().out.splitlines()
-    assert [line for line in lines if line.startswith("SKIP")
-            and "copml-logreg" not in line] == [
-        f"SKIP {a}: LM dry-run comes with the LM training slice"
-        for a in registry.LM_ARCH_IDS]
+    skips = [line for line in lines if line.startswith("SKIP")
+             and "copml-logreg" not in line]
+    assert skips == [
+        f"SKIP {a} x long_500k: skipped (full attention at 500k context)"
+        for a in registry.LM_ARCH_IDS
+        if not registry.get_config(a).subquadratic]
+    from repro_torch.models.config import applicable_shapes
+    for a in registry.LM_ARCH_IDS:
+        cells = [line for line in lines if line.startswith(f"--- {a} x ")]
+        assert cells == [f"--- {a} x {s.name} x pod(256) ---" for s in
+                         applicable_shapes(registry.get_config(a))], a
     assert lines[-1] == "dry-run: all requested cells compiled"
     assert (mesh_lib.production_ranks(),
             mesh_lib.production_ranks(multi_pod=True)) == (256, 512)
