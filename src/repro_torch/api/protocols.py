@@ -217,19 +217,25 @@ class Protocol:
 def run_copml_engine(proto: Copml, spec, key, client_xs, client_ys,
                      iters: int, subset=None, history: bool = False,
                      step_subsets=None, adversaries=None,
-                     timings: dict | None = None) -> tuple:
+                     timings: dict | None = None, callback=None) -> tuple:
     """The one dispatch from an EngineSpec to a Copml engine.
 
     "eager" and "jit" both run Copml.train (the same Python loop here);
     "sharded" runs Copml._train_sharded on the spec's mesh (or the cached
     mesh of its rank count on proto's device).  step_subsets/adversaries
-    carry a FaultPlan's per-step decode subsets and corruption mask.
-    Returns (state, weights, history-or-None).  The proc engine, which
-    also returns its measured communication, is
-    launch.runtime.run_copml_proc (api.fit calls it)."""
+    carry a FaultPlan's per-step decode subsets and corruption mask;
+    `callback(t, w)` (eager only, as in the JAX package) receives the
+    opened model after each step.  Returns (state, weights,
+    history-or-None).  The proc engine, which also returns its measured
+    communication, is launch.runtime.run_copml_proc (api.fit calls it)."""
     spec = engine_mod.parse(spec)
     kw = dict(subset=subset, history=history, timings=timings,
               step_subsets=step_subsets, adversaries=adversaries)
+    if callback is not None:
+        if spec.kind != "eager":
+            raise ValueError("callback is only supported on the eager "
+                             "engine")
+        kw["callback"] = callback
     if spec.kind == "sharded":
         return proto._train_sharded(key, client_xs, client_ys, iters,
                                     mesh=spec.resolve_mesh(proto.device),

@@ -146,6 +146,16 @@ def matvec(a, v):
     return matmul(a, v[:, None])[:, 0]
 
 
+def matvec_batched(a, v):
+    """(a[i] @ v[i]) mod p for a: (B, M, K), v: (B, K): one batched field
+    GEMM with N = 1."""
+    from ..kernels import ops
+    if a.dim() != 3 or tuple(v.shape) != (a.shape[0], a.shape[2]):
+        raise ValueError(f"matvec_batched: a (B, M, K), v (B, K); got "
+                         f"{tuple(a.shape)}, {tuple(v.shape)}")
+    return ops.modmatmul_batched(a, v[..., None])[..., 0]
+
+
 def evaluate_poly(coeffs, x):
     """Horner evaluation of sum_i coeffs[i] * x^i over F_p.
 

@@ -37,6 +37,7 @@ import dataclasses
 import math
 import os
 import time
+import warnings
 from typing import Sequence
 
 import numpy as np
@@ -465,7 +466,7 @@ class Copml:
     def train(self, key, client_xs, client_ys, iters: int,
               subset: Sequence[int] | None = None,
               history: bool = False, timings: dict | None = None,
-              step_subsets=None, adversaries=None) -> tuple:
+              step_subsets=None, adversaries=None, callback=None) -> tuple:
         """Setup + `iters` GD iterations with the JAX package's key schedule
         (split(key) -> (ks, ki); step t uses fold_in(ki, t)).
 
@@ -473,7 +474,8 @@ class Copml:
         subsets and an (iters, N) corruption mask, compiled once into
         device tensors before the setup.  `timings`, when given, receives
         setup_s and iters_s: wall seconds of the setup and of the iteration
-        loop, each ending in a device synchronise.  Returns (state, w,
+        loop, each ending in a device synchronise.  `callback(t, w)`, when
+        given, receives the opened model after step t.  Returns (state, w,
         history (iters,) + w_shape or None)."""
         subset = None if subset is None else tuple(subset)
         iters = int(iters)
@@ -491,8 +493,12 @@ class Copml:
                           adv=None if adv is None else adv[t])
             state = self.iteration(jrandom.fold_in(ki, t), state, subset,
                                    **kw)
-            if history:
-                hist.append(self.open_model(state))
+            if history or callback is not None:
+                w_t = self.open_model(state)
+                if history:
+                    hist.append(w_t)
+                if callback is not None:
+                    callback(t, w_t)
         t2 = self._sync()
         if timings is not None:
             timings.update(setup_s=t1 - t0, iters_s=t2 - t1)
@@ -507,6 +513,51 @@ class Copml:
         """Reconstruct and dequantize the model."""
         w_field = mpc.open_shares(state.w_shares, self.cfg.t, self.lambdas)
         return quantize.dequantize(w_field, self.cfg.lw)
+
+    # -------------------------------------------- deprecated engine methods
+    #
+    # The JAX package's train_* methods, kept as shims: each warns and
+    # forwards to api.protocols.run_copml_engine, the dispatch api.fit runs.
+
+    def _deprecated(self, engine_label: str):
+        warnings.warn(
+            f"Copml.train_{engine_label} is deprecated; use "
+            f"repro_torch.api.fit(workload, 'copml', "
+            f"engine='{engine_label}')", DeprecationWarning, stacklevel=3)
+        from ..api.protocols import run_copml_engine
+        return run_copml_engine
+
+    def train_jit(self, key, client_xs, client_ys, iters: int,
+                  subset: Sequence[int] | None = None,
+                  history: bool = False) -> tuple:
+        """Deprecated: api.fit(..., engine="jit").  Returns (state, w) or
+        (state, w, history)."""
+        run = self._deprecated("jit")
+        state, w, hist = run(self, "jit", key, client_xs, client_ys,
+                             int(iters), subset=subset, history=history)
+        return (state, w, hist) if history else (state, w)
+
+    def train_eager(self, key, client_xs, client_ys, iters: int,
+                    subset: Sequence[int] | None = None,
+                    callback=None) -> tuple:
+        """Deprecated: api.fit(..., engine="eager"); `callback(t, w)`
+        receives the opened model after each step.  Returns (state, w)."""
+        run = self._deprecated("eager")
+        state, w, _ = run(self, "eager", key, client_xs, client_ys,
+                          int(iters), subset=subset, callback=callback)
+        return state, w
+
+    def train_sharded(self, key, client_xs, client_ys, iters: int,
+                      mesh=None, subset: Sequence[int] | None = None,
+                      history: bool = False) -> tuple:
+        """Deprecated: api.fit(..., engine="sharded") on `mesh` (None: one
+        rank per card, or one on the CPU).  Returns (state, w) or (state,
+        w, history)."""
+        run = self._deprecated("sharded")
+        state, w, hist = run(self, "sharded" if mesh is None else mesh, key,
+                             client_xs, client_ys, int(iters), subset=subset,
+                             history=history)
+        return (state, w, hist) if history else (state, w)
 
     # ----------------------------------------------------- distributed engine
 
@@ -804,7 +855,7 @@ def _rank_train(rank, handle, key, iters: int, history: bool, overlap: bool,
     report = dict(
         rank=rank.rank, device=str(dev), backend=rank.backend,
         iters_s=time.perf_counter() - t0, launches=ops.launch_counts(),
-        gemm_paths=ops.gemm_path_counts(),
+        gemm_paths=ops.gemm_path_counts(), wide=ops.wide_counts(),
         peak_bytes=torch.cuda.max_memory_allocated(dev)
         if dev.type == "cuda" else None,
         sent_bytes=dict(rank.sent_bytes))

@@ -34,3 +34,10 @@ def dequantize(u, lx: int):
 def signed_value(u):
     """Field -> signed integer representative in (-p/2, p/2]."""
     return torch.where(u > field.P // 2, u - field.P, u)
+
+
+def quantization_noise_variance(d: int, m: int, k1: int) -> float:
+    """The sigma^2 bound of Theorem 1, d * 2^(2 (k1 - 1)) / m^2: the
+    variance of the secure truncation's rounding noise on the gradient, in
+    the paper's fixed-point units."""
+    return d * float(2 ** (2 * (k1 - 1))) / float(m) ** 2

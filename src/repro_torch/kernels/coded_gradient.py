@@ -18,20 +18,33 @@ Bound on an H100: reading X~ once, N * m * d * 4 bytes over 3.35 TB/s
 (554 MB, ~0.17 ms at cifar10_case2, for C = 1 and C = 10 alike).  Every
 launch parameter comes from `launch_args` (kernels/plan.py's
 gradient_plan and strip_run): bm = 8 and two ~98 KB stages at d = 3073,
-C = 1, one strip per resident CTA.  One row of X~ must fit a block's
-shared memory: d above ~58 K raises (the TPU kernel chunks d instead).
+C = 1, one strip per resident CTA.
+
+The kernel needs one row of X~ in a block's shared memory, so past
+plan.max_d(C) (58,004 at C = 1) the gradient takes the wide route
+(plan.gradient_route; the TPU kernel chunks d instead): `wide_gradient`
+runs Z = X~ W~ on modmatmul's row-dot kernel, ghat(Z) on poly_eval and
+X~^T ghat(Z) on the column-sum kernel.  It reads X~ twice, so its bound
+is twice the body's: ~1.2 ms at N = 50, m = 156, d = 65,536 (2.05 GB).
+WIDE_LAUNCHES counts the wide gradients ("gradient": one each of the
+three launches) and the fused step's epilogues ("epilogue").
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
 
 from . import build
-from .plan import MAX_DEGREE, gradient_plan, strip_run
+from . import field_poly as _fp
+from . import modmatmul as _mm
+from .plan import MAX_DEGREE, gradient_plan, gradient_route, strip_run
 
 MODES = {"reg": 0, "smem": 1, "atomic": 2}     # csrc GradMode
+WIDE_STEPS = ("gradient", "epilogue")
+WIDE_LAUNCHES: collections.Counter = collections.Counter()
 
 _FN = None
 _SLOTS: dict = {}       # (library, ept, C == 1, smem) -> resident CTAs
@@ -111,6 +124,8 @@ def coded_gradient_matrix(x, w, coeffs):
         return f
     if m == 0:
         return f.zero_()
+    if gradient_route(d, c) == "wide":
+        return wide_gradient(x, w, coeffs)
     plan = plan_args("coded_gradient", nb, m, d, c)
     facc = torch.zeros((nb, d, c), dtype=torch.int64, device=x.device)
     wt = w.transpose(1, 2).contiguous()          # class-major: a view at C=1
@@ -120,6 +135,18 @@ def coded_gradient_matrix(x, w, coeffs):
     if err:
         raise RuntimeError(f"coded_gradient kernel launch failed: CUDA error "
                            f"{err}")
+    return f
+
+
+def wide_gradient(x, w, coeffs):
+    """The wide route: f[n] = x[n]^T ghat(x[n] @ w[n]) mod p from three
+    launches of the field kernels, operands as coded_gradient_matrix's
+    (x contiguous, so Z takes the row-dot kernel and the transposed view
+    the column-sum kernel up to C = 16).  Returns (N, d, C) int32."""
+    z = _mm.modmatmul_batched(x, w)                      # (N, m, C)
+    g = _fp.poly_eval(z, coeffs)
+    f = _mm.modmatmul_batched(x.transpose(1, 2), g)      # (N, d, C)
+    WIDE_LAUNCHES["gradient"] += 1
     return f
 
 

@@ -21,6 +21,12 @@
 //                          open c = sum_h rvec[h] * c_sh[h], its low k1 bits
 //                          minus r0sh, * inv(2^k1), w' = wsh - delta.
 //
+// Past d ~ 58 K one row of X~ no longer fits a block's shared memory, and
+// the step takes the wide route (kernels/plan.py gradient_route): the
+// gradient f comes from modmatmul's row-dot and column-sum kernels and
+// poly_eval as int32 values < p, and repro_fused_epilogue runs the same
+// epilogue on it (the int32 instance, which reads f and writes no copy).
+//
 // Bound on an H100: reading X~ once (N * m * d * 4 bytes, 554 MB at the
 // paper's cifar10_case2 shape) over 3.35 TB/s, ~0.17 ms; the epilogue's
 // ~6 MB add ~2 us.  Every sum is of canonical values < p and products
@@ -33,8 +39,21 @@ namespace {
 constexpr int kEpiLanes = 32;
 constexpr int kEpiWarps = 8;
 
+// f[n] mod p from the gradient kernel's uint64 accumulator, or as it is
+// from the wide route's int32 gradient (already < p).
+__device__ __forceinline__ uint32_t grad_at(const unsigned long long* f,
+                                            int64_t i) {
+  return reduce_p(f[i]);
+}
+__device__ __forceinline__ uint32_t grad_at(const int32_t* f, int64_t i) {
+  return (uint32_t)f[i];
+}
+
+// F = unsigned long long: facc is the accumulator, f_out gets f mod p;
+// F = int32_t: facc is f itself and f_out is unused.
+template <typename F>
 __global__ void __launch_bounds__(kEpiLanes * kEpiWarps)
-fused_epilogue_kernel(const unsigned long long* __restrict__ facc,
+fused_epilogue_kernel(const F* __restrict__ facc,
                       const int32_t* __restrict__ adv_off,
                       const int32_t* __restrict__ dfull,
                       const int32_t* __restrict__ rvec,
@@ -55,8 +74,8 @@ fused_epilogue_kernel(const unsigned long long* __restrict__ facc,
   uint64_t common = 0;
   if (ok) {
     for (int n = warp; n < N; n += kEpiWarps) {
-      const uint32_t f = reduce_p(facc[n * L + e]);
-      f_out[n * L + e] = (int32_t)f;
+      const uint32_t f = grad_at(facc, n * L + e);
+      if (sizeof(F) == 8) f_out[n * L + e] = (int32_t)f;
       common += (uint64_t)addp(f, (uint32_t)adv_off[n]) * (uint32_t)dfull[n];
     }
   }
@@ -131,7 +150,8 @@ extern "C" int repro_fused_step(const void* x, const void* w,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t L = (int64_t)d * C;
   const unsigned epi_blocks = (unsigned)((L + kEpiLanes - 1) / kEpiLanes);
-  fused_epilogue_kernel<<<epi_blocks, kEpiLanes * kEpiWarps, 0, s>>>(
+  fused_epilogue_kernel<unsigned long long>
+      <<<epi_blocks, kEpiLanes * kEpiWarps, 0, s>>>(
       static_cast<const unsigned long long*>(facc),
       static_cast<const int32_t*>(adv_off), static_cast<const int32_t*>(dfull),
       static_cast<const int32_t*>(rvec), static_cast<const int32_t*>(base),
@@ -139,5 +159,33 @@ extern "C" int repro_fused_step(const void* x, const void* w,
       static_cast<const int32_t*>(radd), static_cast<const int32_t*>(r0sh),
       static_cast<int32_t*>(f_out), static_cast<int32_t*>(w_out), N, L,
       (uint32_t)q_eta, (uint32_t)inv2k1, k1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The epilogue alone, on a gradient f (N, d, C) of int32 values < p that
+// the wide route computed; the other operands as repro_fused_step's.
+// Refused unless 1 <= N <= 1024, d, C >= 1 and 0 < k1 < 26.  Returns
+// cudaGetLastError() after the launch (0 = success).
+extern "C" int repro_fused_epilogue(const void* f, const void* adv_off,
+                                    const void* dfull, const void* rvec,
+                                    const void* base, const void* xty,
+                                    const void* wsh, const void* radd,
+                                    const void* r0sh, void* w_out, int N,
+                                    int d, int C, int64_t q_eta,
+                                    int64_t inv2k1, int k1, void* stream) {
+  if (N < 1 || N > 1024 || d < 1 || C < 1 || k1 < 1 || k1 > 25)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t L = (int64_t)d * C;
+  const unsigned epi_blocks = (unsigned)((L + kEpiLanes - 1) / kEpiLanes);
+  fused_epilogue_kernel<int32_t>
+      <<<epi_blocks, kEpiLanes * kEpiWarps, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(f), static_cast<const int32_t*>(adv_off),
+      static_cast<const int32_t*>(dfull), static_cast<const int32_t*>(rvec),
+      static_cast<const int32_t*>(base), static_cast<const int32_t*>(xty),
+      static_cast<const int32_t*>(wsh), static_cast<const int32_t*>(radd),
+      static_cast<const int32_t*>(r0sh), nullptr,
+      static_cast<int32_t*>(w_out), N, L, (uint32_t)q_eta, (uint32_t)inv2k1,
+      k1);
   return static_cast<int>(cudaGetLastError());
 }

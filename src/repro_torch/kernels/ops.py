@@ -7,6 +7,9 @@ is no fallback from a kernel to its plain version and no tuning knob.
 LAUNCHES counts the kernel launches of each op (CPU calls count nothing),
 so a run can show that its main path went through the kernels;
 gemm_path_counts breaks the field GEMM's launches down by kernel path.
+Past d = 58,004 (plan.gradient_route) a coded gradient or fused step
+launches no gradient kernel but the wide route's field kernels: it counts
+in wide_counts, not in LAUNCHES.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from . import field_poly as _fp
 from . import fused_step as _fs
 from . import modmatmul as _mm
 from . import ref
+from .plan import gradient_route
 
 KERNELS = ("modmatmul", "modmatmul_batched", "fused_step",
            "coded_gradient_batched", "coded_gradient_matrix",
@@ -28,6 +32,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 def reset_launches() -> None:
     LAUNCHES.clear()
     _mm.PATH_LAUNCHES.clear()
+    _cg.WIDE_LAUNCHES.clear()
 
 
 def launch_counts() -> dict:
@@ -38,6 +43,21 @@ def gemm_path_counts() -> dict:
     """Launches of modmatmul[_batched] by plan.gemm_path ("thin", "colsum",
     "rowdot", "splitk", "tiled") since the last reset."""
     return {p: _mm.PATH_LAUNCHES[p] for p in _mm.PATHS}
+
+
+def wide_counts() -> dict:
+    """Since the last reset: "gradient", the wide route's gradients (each
+    one launch of the row-dot GEMM, poly_eval and the column-sum GEMM; the
+    GEMMs also count in gemm_path_counts), and "epilogue", the fused
+    step's epilogue launched on one."""
+    return {s: _cg.WIDE_LAUNCHES[s] for s in _cg.WIDE_STEPS}
+
+
+def _count_gradient(name: str, d: int, c: int) -> None:
+    """One launch of `name`'s gradient kernel, unless (d, C) took the wide
+    route (counted in wide_counts)."""
+    if gradient_route(d, c) == "body":
+        LAUNCHES[name] += 1
 
 
 def modmatmul(a, b):
@@ -74,7 +94,7 @@ def coded_gradient(x, w, coeffs):
     if x.device.type == "cpu":
         return ref.coded_gradient(x, w, coeffs)
     out = _cg.coded_gradient(x, w, coeffs)
-    LAUNCHES["coded_gradient"] += 1
+    _count_gradient("coded_gradient", x.shape[-1], 1)
     return out
 
 
@@ -84,7 +104,7 @@ def coded_gradient_batched(x, w, coeffs):
     if x.device.type == "cpu":
         return ref.coded_gradient_batched(x, w, coeffs)
     out = _cg.coded_gradient_batched(x, w, coeffs)
-    LAUNCHES["coded_gradient_batched"] += 1
+    _count_gradient("coded_gradient_batched", x.shape[-1], 1)
     return out
 
 
@@ -93,7 +113,7 @@ def coded_gradient_matrix(x, w, coeffs):
     if x.device.type == "cpu":
         return ref.coded_gradient_matrix(x, w, coeffs)
     out = _cg.coded_gradient_matrix(x, w, coeffs)
-    LAUNCHES["coded_gradient_matrix"] += 1
+    _count_gradient("coded_gradient_matrix", x.shape[-1], w.shape[-1])
     return out
 
 
@@ -112,5 +132,5 @@ def fused_step(x, w, coeffs, adv_off, dfull, rvec, base, xty, wsh, radd,
     if x.device.type == "cpu":
         return ref.fused_step(*args, **kw)
     out = _fs.fused_step(*args, **kw)
-    LAUNCHES["fused_step"] += 1
+    _count_gradient("fused_step", x.shape[-1], w.shape[-1])
     return out

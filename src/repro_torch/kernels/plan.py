@@ -13,6 +13,9 @@ kernels' bounds), so the CPU tests reach the code that decides:
 - `gradient_plan`, `stage_bytes`, `strip_run`: the gradient kernel's
   accumulator mode, slice height, ring depth and stage size, shared
   memory, and the strips its CTAs walk;
+- `gradient_route`: whether a coded gradient takes that kernel ("body")
+  or, past the widest d whose row of X~ fits its shared memory, the wide
+  route of three field kernels ("wide");
 - `poly_launch`: poly_eval's kernel (one thread an element, or
   grid-stride) and its blocks.
 
@@ -21,8 +24,9 @@ It also holds numpy models of device code the CPU cannot run:
 `pass1_terms` (the products a lane of the gradient kernel's pass 1 sums
 before its one reduce), `slice_copy` (the 16-byte peel of each slice's
 bulk copy), `colsum_model` (the column-sum kernel's lane sums and the
-combine of its K splits) and `horner_lazy` (poly_eval's lazy Horner
-step).
+combine of its K splits), `horner_lazy` (poly_eval's lazy Horner step),
+and `wide_model` / `epilogue_model` (the wide route's three kernels, and
+csrc/fused_step.cu's epilogue).
 """
 
 from __future__ import annotations
@@ -344,17 +348,36 @@ def gradient_plan(m: int, d: int, c: int) -> dict:
                      f"of X~ in shared memory")
 
 
-def max_d() -> int:
-    """The widest d (at C = 1) the gradient kernel takes."""
+@functools.lru_cache(maxsize=None)
+def max_d(c: int = 1) -> int:
+    """The widest d the gradient kernel takes for a (d, C) model: 58,004
+    at C = 1, a little less at larger C (its z partials share the block's
+    shared memory)."""
     lo, hi = 1, 1 << 20
     while lo < hi:
         mid = (lo + hi + 1) // 2
         try:
-            gradient_plan(1, mid, 1)
+            gradient_plan(1, mid, c)
             lo = mid
         except ValueError:
             hi = mid - 1
     return lo
+
+
+def gradient_route(d: int, c: int) -> str:
+    """How the card computes f[n] = X~[n]^T ghat(X~[n] W~[n]) for X~
+    (N, m, d) and a (d, C) model, in the siloed and the fused schedule:
+
+    "body"  the gradient kernel (csrc/coded_gradient.cuh), which reads X~
+            once, wherever gradient_plan fits one row of X~ in a block's
+            shared memory (d <= max_d(C));
+    "wide"  past that: Z = X~ W~ on modmatmul's row-dot kernel (A's
+            K-stride 1, N = C <= 16), ghat(Z) on poly_eval, X~^T ghat(Z)
+            on its column-sum kernel (the transposed view, M-stride 1) --
+            the tiled kernel for C > 16 -- each exact mod p, so the bits
+            equal the body's; the fused step then runs its epilogue on f.
+            It reads X~ twice."""
+    return "body" if d <= max_d(c) else "wide"
 
 
 def pass1_terms(d: int) -> int:
@@ -431,3 +454,54 @@ def horner_lazy(z, coeffs) -> np.ndarray:
         g = (y & np.uint64(MASK26)) + np.uint64(5) * (y >> np.uint64(26))
         assert (g < np.uint64(2 * P)).all()
     return np.where(g >= np.uint64(P), g - np.uint64(P), g)
+
+
+# ------------------------------------------------------------ the wide route
+
+EPI_WARPS = 8                       # csrc/fused_step.cu kEpiWarps
+
+
+def wide_model(x, w, coeffs, sms: int) -> np.ndarray:
+    """numpy model of the wide route's gradient on a card of `sms` SMs: x
+    (N, m, d), w (N, d, C <= 16) field values.  Z = X~ W~ as the row-dot
+    kernel sums it (rowdot_model at rowdot_shape's chunk of K), ghat(Z) by
+    poly_eval's lazy Horner, X~^T ghat(Z) as the column-sum kernel and its
+    combine sum it (colsum_model at colsum_launch's split).  Returns
+    (N, d, C) uint64 values < p."""
+    n, m, d = x.shape
+    c = w.shape[2]
+    z, _ = rowdot_model(x, w, rowdot_shape(c, d)["kch"])
+    g = horner_lazy(z, coeffs)
+    f, _ = colsum_model(np.swapaxes(np.asarray(x, np.uint64), 1, 2), g,
+                        colsum_launch(d, c, m, n, sms)["kc"])
+    return f
+
+
+def _warp_sums(terms) -> np.ndarray:
+    """The epilogue's sum over its first axis (N clients or holders):
+    warp w sums rows w, w + 8, ... in uint64 and reduces, the 8 warps'
+    values (< p each) are summed and reduced once more."""
+    parts = [reduce_p(np.sum(terms[w::EPI_WARPS], axis=0, dtype=np.uint64))
+             for w in range(EPI_WARPS)]
+    return reduce_p(np.sum(parts, axis=0, dtype=np.uint64))
+
+
+def epilogue_model(f, adv_off, dfull, rvec, base, xty, wsh, radd, r0sh, *,
+                   q_eta: int, inv2k1: int, k1: int) -> np.ndarray:
+    """numpy model of csrc/fused_step.cu's fused_epilogue_kernel on a
+    gradient f (N, d, C) of values < p (either route's): the decode fold
+    common = sum_n dfull[n] (f[n] + adv_off[n]), each holder's gradient
+    (base + common - xty) * q_eta, the TruncPr open c = sum_h rvec[h]
+    (scaled[h] + radd[h]), its low k1 bits minus r0sh times inv(2^k1), and
+    w' = wsh - delta.  Returns w' (N, d, C) as uint64 values < p."""
+    u = lambda a: np.asarray(a, np.uint64)                  # noqa: E731
+    f, base, xty, wsh, radd, r0sh = map(u, (f, base, xty, wsh, radd, r0sh))
+    col = lambda v: u(v)[:, None, None]                     # noqa: E731
+    pp = np.uint64(P)
+    common = _warp_sums((f + col(adv_off)) % pp * col(dfull))
+    scaled = (base + common[None] + pp - xty) % pp * np.uint64(q_eta % P) % pp
+    c0 = _warp_sums(col(rvec) * ((scaled + radd) % pp)) & np.uint64(
+        (1 << k1) - 1)
+    delta = (scaled + pp - (c0[None] + pp - r0sh) % pp) % pp \
+        * np.uint64(inv2k1 % P) % pp
+    return (wsh + pp - delta) % pp

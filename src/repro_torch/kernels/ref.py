@@ -68,6 +68,14 @@ def coded_gradient(x: Coded, w: Coded, coeffs: Public) -> Coded:
     return modmatmul(x.t(), g[:, None])[:, 0]
 
 
+def coded_gradient_vmap(x: Coded, w: Coded, coeffs: Public) -> Coded:
+    """The per-client loop of coded_gradient over x (N, m, d), w (N, d):
+    a second oracle for the batched versions (they must agree element for
+    element mod p)."""
+    return torch.stack([coded_gradient(xi, wi, coeffs)
+                        for xi, wi in zip(x, w)])
+
+
 def coded_gradient_batched(x: Coded, w: Coded, coeffs: Public) -> Coded:
     """f[n] = x[n]^T ghat(x[n] w[n]) for a vector model w: (N, d)."""
     z = modmatmul_batched(x, w[..., None])               # (N, m, 1)
@@ -89,8 +97,16 @@ def fused_step(x, w, coeffs, adv_off, dfull, rvec, base, xty, wsh, radd,
     offset, decode fold against the zero-scattered decode row, q_eta scale,
     TruncPr masked open (rvec = the reconstruct Lagrange row zero-padded
     over holders) and borrow-folded rescale."""
-    n = x.shape[0]
     f = coded_gradient_matrix(x, w, coeffs)
+    return f, fused_epilogue(f, adv_off, dfull, rvec, base, xty, wsh, radd,
+                             r0sh, q_eta=q_eta, inv2k1=inv2k1, k1=k1)
+
+
+def fused_epilogue(f, adv_off, dfull, rvec, base, xty, wsh, radd, r0sh, *,
+                   q_eta: int, inv2k1: int, k1: int):
+    """The fused step after its gradient f (N, d, C) (kernels/fused_step.py
+    epilogue): returns the updated model shares."""
+    n = f.shape[0]
     f_adj = field.add(f, adv_off[:, None, None])
     common = modmatmul(dfull[None], f_adj.reshape(n, -1))[0].reshape(
         f.shape[1:])
@@ -103,4 +119,4 @@ def fused_step(x, w, coeffs, adv_off, dfull, rvec, base, xty, wsh, radd,
     c0 = c_open & ((1 << k1) - 1)
     a0 = field.sub(c0[None].expand(c_sh.shape), r0sh)
     delta = field.mul_scalar(field.sub(scaled, a0), inv2k1)
-    return f, field.sub(wsh, delta)
+    return field.sub(wsh, delta)

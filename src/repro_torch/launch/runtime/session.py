@@ -248,6 +248,7 @@ def _assemble_measured(results, node, P, iters, wall, setup_wall,
         "setup_wall_s": setup_wall,
         "wall_s": wall,
         "workers": [{k: results[r][k] for k in
-                     ("device", "wall_s", "launches", "gemm_paths", "gemms")}
+                     ("device", "wall_s", "launches", "gemm_paths", "wide",
+                      "gemms")}
                     for r in range(P)],
     }
