@@ -173,25 +173,34 @@ Phases (a failed phase fails the run; no failure is caught):
               GEMM's device ms and bound; (e) subprocesses: launch.train with
               checkpoints, resumed, equal to a straight run; launch.dryrun
               --arch qwen3-1.7b --shape all --mesh both
- 14. wide     the coded gradient's wide route (kernels/plan.py
-              gradient_route), past the gradient kernel's d = 58,004:
-              cifar10_case2's configuration at d = 65,536, m = 1,560 (156
-              coded rows a client).  At that full shape the gradient (C = 1
-              and 10) and the fused step against their plain versions
-              (kernels/ref on the card) with rows at p - 1 and with every
-              operand p - 1, and each of the route's four kernels (Z on the
-              row-dot GEMM, ghat on poly_eval, X~^T ghat on the column-sum
-              GEMM, the fused step's epilogue) against its plain version,
-              timed beside its bound; then api.fit fused, siloed and
-              ten-class siloed (5 iterations each; fused and siloed
-              bit-equal, the last steps re-checked, the route launched once
-              a step, no tiled GEMM), two fused steps profiled, the fused
+ 14. wide     the coded gradient past the gradient kernel's d = 58,004
+              (kernels/plan.py gradient_route): cifar10_case2's
+              configuration at d = 65,536, m = 1,560 (156 coded rows a
+              client).  The cluster route (C = 1) against its plain version
+              (kernels/ref on the card) at that full shape with rows at
+              p - 1 and with every operand p - 1, at odd d = 58,005, at its
+              widest d (N = 2, m = 3), at m = 2 and with one client; its
+              gradient at every cluster size that fits and as the plan takes
+              it, the fused step on it, and the two-read wide route called
+              directly, each timed beside its bound; C = 10 on the plan's
+              route (wide), timed; each of the wide
+              route's four kernels (Z on the row-dot GEMM, ghat on
+              poly_eval, X~^T ghat on the column-sum GEMM, the fused step's
+              epilogue) at the ten-class shapes against its plain version,
+              timed beside its bound; then api.fit fused and siloed (the
+              cluster route once a step, no two-read gradient), ten-class
+              siloed and fused (the wide route; 5 iterations each; each
+              pair bit-equal, the last steps re-checked, no tiled GEMM),
+              two fused and two ten-class siloed steps profiled, the fused
               result served at batch 32 (split-K at K = 65,536, equal to
-              reference_scores), and sharded:4 bit-equal to jit over 2 steps
+              reference_scores), and sharded:4 bit-equal to jit over 2
+              steps (the cluster route in every rank).  Phase 10 also times
+              a sharded rank's score GEMM, K split over CTAs on rowdot, at
+              batch 1, 32 and 128 against its times before the split
 
 Output: one {"kernels": [...]} JSON line (the seven TPU kernels' ports,
-then the row-dot and split-K paths of modmatmul and the wide route's four
-kernels as entries of their own,
+then the row-dot and split-K paths of modmatmul, the wide route's four
+kernels and the cluster gradient kernel as entries of their own,
 each with its launches on the full-width path that runs it and its times
 at that path's shape (asserted), its launches by path -- the proc:4 runs' summed over the coordinator and the workers --
 and its time at a proc worker's shape where it runs there), the card's
@@ -371,6 +380,7 @@ TPU_KERNEL = {
     "fused_step.wide_ghat": "src/repro/kernels/fused_step.py:138",
     "fused_step.wide_xtg": "src/repro/kernels/fused_step.py:138",
     "fused_step.wide_epilogue": "src/repro/kernels/fused_step.py:138",
+    "fused_step.cluster": "src/repro/kernels/fused_step.py:138",
 }
 SOURCE = {
     "modmatmul": "src/repro_torch/kernels/csrc/modmatmul.cu",
@@ -386,18 +396,29 @@ SOURCE = {
     "fused_step.wide_ghat": "src/repro_torch/kernels/csrc/field_poly.cu",
     "fused_step.wide_xtg": "src/repro_torch/kernels/csrc/modmatmul.cu",
     "fused_step.wide_epilogue": "src/repro_torch/kernels/csrc/fused_step.cu",
+    "fused_step.cluster":
+        "src/repro_torch/kernels/csrc/coded_gradient_cluster.cuh",
 }
 # the modmatmul paths with entries of their own in the kernels line: the
 # GEMM path, and the full-width run whose launches they report
 PATH_ENTRIES = {"modmatmul_batched.rowdot": ("rowdot", "mpc_baseline"),
                 "modmatmul.splitk": ("splitk", "serve")}
-# the wide route's kernels (phase 14), entries of their own: the key of
+# the kernels past d = 58,004 (phase 14), entries of their own: the key of
 # ops.wide_counts each one counts (a wide gradient launches Z, ghat and
-# X~^T ghat once each)
+# X~^T ghat once each; a cluster gradient the cluster kernel once), and the
+# phase-14 run whose launches the kernels line reports: the cluster kernel
+# carries the binary fits (C = 1), the wide route the ten-class ones
 WIDE_ENTRIES = {"fused_step.wide_z": "gradient",
                 "fused_step.wide_ghat": "gradient",
                 "fused_step.wide_xtg": "gradient",
-                "fused_step.wide_epilogue": "epilogue"}
+                "fused_step.wide_epilogue": "epilogue",
+                "fused_step.cluster": "cluster"}
+WIDE_RUN = {name: f"fused {WIDE10_NAME}" for name in WIDE_ENTRIES}
+WIDE_RUN["fused_step.cluster"] = f"fused {WIDE_NAME}"
+# a sharded:4 rank's serving scores (B, 3073) @ (3073, 13) on rowdot before
+# its K was split: device ms at each of SERVE_BATCHES (PERF.md section 6,
+# NVIDIA H100 80GB HBM3, 700 W)
+RANK_SCORES_BEFORE_MS = {1: 0.0323, 32: 0.0328, 128: 0.0331}
 
 
 def count_key(name: str) -> str:
@@ -415,8 +436,9 @@ def log(*args):
 
 def run_counts() -> dict:
     """The launch counts since the last ops.reset_launches(): each kernel's,
-    the field GEMM's by path under "gemm:<path>", and the wide route's
-    gradients and epilogues under "wide:gradient" and "wide:epilogue"."""
+    the field GEMM's by path under "gemm:<path>", and the cluster route's
+    gradients, the wide route's gradients and its epilogues under
+    "wide:cluster", "wide:gradient" and "wide:epilogue"."""
     from repro_torch.kernels import ops
     counts = ops.launch_counts()
     counts.update({f"gemm:{p}": c for p, c in ops.gemm_path_counts().items()})
@@ -1838,8 +1860,9 @@ def sharded_counts(coord: dict, ranks: list) -> dict:
 
 def sharded_ranks_ok(res, iters: int, kernel: str, mesh) -> None:
     """Every rank ran on its card with the mesh's backend, launched
-    `kernel` (its coded gradient; "wide" for the wide route's) once a step
-    and fused_step never, and took no GEMM down the tiled path."""
+    `kernel` (its coded gradient; "cluster" or "wide" for the routes past
+    d = 58,004) once a step and fused_step never, and took no GEMM down the
+    tiled path."""
     ranks = res.timings["ranks"]
     assert [r["device"] for r in ranks] == [str(d) for d in mesh.devices], \
         ranks
@@ -1847,6 +1870,7 @@ def sharded_ranks_ok(res, iters: int, kernel: str, mesh) -> None:
         assert rec["device"].startswith("cuda"), rec
         assert rec["backend"] == mesh.backend, rec
         got = rec["wide"]["gradient"] if kernel == "wide" else \
+            rec["wide"]["cluster"] if kernel == "cluster" else \
             rec["launches"][kernel]
         assert got == iters, (kernel, rec["launches"], rec["wide"])
         assert rec["launches"]["fused_step"] == 0, rec["launches"]
@@ -1891,6 +1915,8 @@ def phase_sharded(ck: Checker, np, fused) -> tuple:
     from repro_torch import api
     from repro_torch.core import meshutil
     from repro_torch.kernels import modmatmul as mm
+    from repro_torch.kernels import plan as kplan
+    from repro_torch.kernels import ref
     from repro_torch.serve import coded
     wl = api.get_workload(FULL_WORKLOAD)
     wl.client_data()                       # dataset build is set-up
@@ -2017,6 +2043,22 @@ def phase_sharded(ck: Checker, np, fused) -> tuple:
             f"{stats['queries']} queries; rank 0 launches "
             f"{ {k: v for k, v in rc[0].items() if v} }")
         del srv
+        # a rank's score GEMM alone, K split over CTAs on rowdot
+        a, y = ck.field(b, wl.d), ck.field(wl.d, n_loc)
+        shape = kplan.rowdot_shape(n_loc, wl.d)
+        launch = kplan.rowdot_launch(b, n_loc, wl.d, 1, mm._rowdot_slots(
+            shape["cmax"], shape["smem"]))
+        ck.compare("modmatmul", mm.modmatmul(a, y), ref.modmatmul(a, y),
+                   f"a sharded rank's scores batch {b}, {launch['splits']} "
+                   f"splits of K")
+        dev = device_ms(torch, lambda: mm.modmatmul(a, y), 50)
+        summary["serve"][f"batch {b}"].update(
+            rank_scores_device_ms=dev, rank_scores_launch=launch)
+        log(f"sharded: a rank's scores ({b}, {wl.d}) @ ({wl.d}, {n_loc}) on "
+            f"{gpath}, {launch['splits']} splits of {launch['ks']} rows of "
+            f"K, {launch['cpb']} strips: {dev} device ms (before the split "
+            f"{RANK_SCORES_BEFORE_MS[b]})")
+        del a, y
     return summary, runs
 
 
@@ -3134,12 +3176,57 @@ def timed_row(ck: Checker, name: str, what: str, fn, plain, work: tuple,
     return rec
 
 
+def cluster_label(m: int, d: int, k=None) -> str:
+    from repro_torch.kernels import plan
+    pl = plan.cluster_plan(m, d, 1, k)
+    return (f"[k={pl['k']} cw={pl['cw']} bm={pl['bm']} "
+            f"stages={pl['stages']} {pl['mode']}]")
+
+
+def cluster_checks(ck: Checker, n: int, mk: int, d: int) -> None:
+    """The cluster route (C = 1) against its plain version (kernels/ref on
+    the card): at the wide cell's (N, m, d) with rows at p - 1 and with
+    every operand p - 1, at odd d = 58,005 (rows 4-byte aligned), at its
+    widest d with N = 2, m = 3, at m = 2 (below the slice of m = 156) and
+    with one client; through coded_gradient_matrix and _batched."""
+    torch = ck.torch
+    from repro_torch.kernels import coded_gradient as cg
+    from repro_torch.kernels import plan, ref
+    cases = [(n, mk, d, "rows at p - 1"), (n, mk, d, "every operand p - 1"),
+             (n, mk, 58005, "odd d, rows at p - 1"),
+             (2, 3, plan.cluster_max_d(), "the cluster's widest d"),
+             (n, 2, d, "m = 2, below one slice"), (1, mk, d, "one client")]
+    for nn, m_, d_, what in cases:
+        assert plan.gradient_route(d_, 1) == "cluster", (d_, what)
+        x, w, co = ck.field(nn, m_, d_), ck.field(nn, d_, 1), ck.field(2)
+        if what.startswith("every"):
+            for t in (x, w, co):
+                t.fill_(ck.P - 1)
+        else:
+            worst_rows(ck, x, w)
+        label = (f"cluster N={nn} m={m_} d={d_} C=1 "
+                 f"{cluster_label(m_, d_)}: {what}")
+        want = ref.coded_gradient_matrix(x, w, co)
+        ck.compare("fused_step.cluster", cg.coded_gradient_matrix(x, w, co),
+                   want, label)
+        ck.compare("coded_gradient_batched",
+                   cg.coded_gradient_batched(x, w[..., 0], co),
+                   want[..., 0], label)
+        del x, w, co, want
+        torch.cuda.empty_cache()
+    log(f"wide: the cluster route equals its plain version at "
+        f"{len(cases)} shapes")
+
+
 def wide_kernel_rows(ck: Checker, n: int, mk: int, d: int) -> dict:
-    """The wide route at its full shape, X~ (N, m, d) = (50, 156, 65,536):
-    the gradient (C = 1 and 10) and the fused step (C = 1) against their
-    plain versions (kernels/ref on the card) with rows at p - 1 and with
-    every operand p - 1, then each of its four kernels against its plain
-    version, timed beside its bound.  Returns the kernels-line rows."""
+    """The routes past d = 58,004 at the wide cell's shape, X~ (N, m, d) =
+    (50, 156, 65,536), against their plain versions (kernels/ref on the
+    card) and timed beside their bounds: the cluster route at C = 1
+    (cluster_checks, then its gradient at each cluster size and the fused
+    step on it), the two-read route at C = 1 by direct calls (before the
+    cluster route took it), C = 10 on the route the plan gives it, and
+    each of the wide route's four kernels at the ten-class fits' shapes.  Returns the kernels-line rows
+    (the cluster kernel's at C = 1, the wide route's at C = 10)."""
     torch = ck.torch
     from repro_torch.kernels import coded_gradient as cg
     from repro_torch.kernels import field_poly as fp
@@ -3147,49 +3234,101 @@ def wide_kernel_rows(ck: Checker, n: int, mk: int, d: int) -> dict:
     from repro_torch.kernels import modmatmul as mm
     from repro_torch.kernels import plan, ref
     from repro_torch.launch import roofline as RL
-    for c in (1, 10):
-        assert plan.gradient_route(d, c) == "wide", (d, c)
-        for worst in (False, True):
-            x, w, co = ck.field(n, mk, d), ck.field(n, d, c), ck.field(2)
-            if worst:
-                for t in (x, w, co):
-                    t.fill_(ck.P - 1)
-            else:
-                worst_rows(ck, x, w)
-            label = (f"wide N={n} m={mk} d={d} C={c} "
-                     f"{'every operand' if worst else 'rows at'} p - 1")
-            want = ref.coded_gradient_matrix(x, w, co)
-            ck.compare("coded_gradient_matrix",
-                       cg.coded_gradient_matrix(x, w, co), want, label)
-            if c == 1:
-                ck.compare("coded_gradient_batched",
-                           cg.coded_gradient_batched(x, w[..., 0], co),
-                           want[..., 0], label)
-            if c == 10 and not worst:
-                timed_row(ck, "coded_gradient_matrix", label,
-                          lambda: cg.coded_gradient_matrix(x, w, co),
-                          lambda: ref.coded_gradient_matrix(x, w, co),
-                          RL.gradient_work(n, mk, d, c, 1), reps=5)
-            del x, w, co, want
-            torch.cuda.empty_cache()
+    cluster_checks(ck, n, mk, d)
+    rows = {}
 
+    # (a) the cluster gradient at C = 1: every cluster size that fits,
+    #     then the plan's
+    x, w, co = ck.field(n, mk, d), ck.field(n, d, 1), ck.field(2)
+    want = ref.coded_gradient_matrix(x, w, co)
+    sizes = {}
+    for k in plan.CLUSTER_SIZES:
+        try:
+            label = cluster_label(mk, d, k)
+        except ValueError:
+            continue                           # no slice fits at this k
+        ck.compare("fused_step.cluster", cg.cluster_gradient(x, w, co, k=k),
+                   want, f"cluster N={n} m={mk} d={d} C=1 {label}")
+        sizes[k] = device_ms(
+            torch, lambda: cg.cluster_gradient(x, w, co, k=k), 10)
+        ck.rows.append(dict(kernel="fused_step.cluster",
+                            what=f"cluster size {k}", shape=label,
+                            device_ms=sizes[k],
+                            clusters=cg.cluster_args("coded_gradient", n, mk,
+                                                     d, 1, k)[-1]))
+    log(f"wide: cluster gradient N={n} m={mk} d={d} C=1 device ms by "
+        f"cluster size {sizes}; the plan takes {cluster_label(mk, d)}, "
+        f"{cg.cluster_args('coded_gradient', n, mk, d, 1)[-1]} clusters")
+    rows["fused_step.cluster"] = dict(timed_row(
+        ck, "fused_step.cluster",
+        f"cluster gradient N={n} m={mk} d={d} C=1 {cluster_label(mk, d)}",
+        lambda: cg.coded_gradient_matrix(x, w, co),
+        lambda: ref.coded_gradient_matrix(x, w, co),
+        RL.gradient_work(n, mk, d, 1, 1)), workload=WIDE_NAME)
+    ck.compare("coded_gradient_matrix", cg.wide_gradient(x, w, co), want,
+               f"wide route N={n} m={mk} d={d} C=1, called directly")
+    timed_row(ck, "coded_gradient_matrix",
+              f"wide route N={n} m={mk} d={d} C=1, called directly",
+              lambda: cg.wide_gradient(x, w, co),
+              lambda: ref.coded_gradient_matrix(x, w, co),
+              RL.gradient_work(n, mk, d, 1, 1), reps=5)
+    del x, w, co, want
+    torch.cuda.empty_cache()
+
+    # (b) the fused step on the cluster route, and on the two-read route
     op = fused_operands(ck, n, mk, d, 1, 1)
     args, kw = op["args"], op["kw"]
-    x, w, co = args[:3]
-    worst_rows(ck, x, w)
-    what = f"wide N={n} m={mk} d={d} C=1"
+    worst_rows(ck, *args[:2])
+    what = f"N={n} m={mk} d={d} C=1"
     got = fs.fused_step(*args, **kw)
     want = ref.fused_step(*args, **kw)
     for g, w_, part in zip(got, want, ("f", "new_w")):
         ck.compare("fused_step", g, w_, f"{what} rows at p - 1 {part}")
     del got, want
-    # the whole wide step: in ck.rows only (the kernels line's fused_step
-    # row is the main path's, at cifar10_case2)
-    timed_row(ck, "fused_step", f"{what} (the whole wide step)",
+    timed_row(ck, "fused_step", f"{what} (the whole step, cluster route)",
               lambda: fs.fused_step(*args, **kw),
               lambda: ref.fused_step(*args, **kw),
+              RL.fused_work(n, mk, d, 1, 1), reps=10)
+    x, w, co = args[:3]
+    timed_row(ck, "fused_step", f"{what} (the whole step, two-read route "
+              f"called directly)",
+              lambda: fs.epilogue(cg.wide_gradient(x, w, co), *args[3:],
+                                  **kw),
+              lambda: ref.fused_step(*args, **kw),
               RL.fused_work(n, mk, d, 1, 1), reps=5)
-    rows = {}
+    del op, args, x, w, co
+    torch.cuda.empty_cache()
+
+    # (c) ten classes, on the route the plan gives them (the wide one: the
+    #     cluster kernel takes C = 1 only)
+    route = plan.gradient_route(d, 10)
+    for worst in (False, True):
+        x, w, co = ck.field(n, mk, d), ck.field(n, d, 10), ck.field(2)
+        if worst:
+            for t in (x, w, co):
+                t.fill_(ck.P - 1)
+        else:
+            worst_rows(ck, x, w)
+        label = (f"N={n} m={mk} d={d} C=10 "
+                 f"{'every operand' if worst else 'rows at'} p - 1")
+        want = ref.coded_gradient_matrix(x, w, co)
+        ck.compare("coded_gradient_matrix",
+                   cg.coded_gradient_matrix(x, w, co), want,
+                   f"{label}, {route} route")
+        if not worst:
+            timed_row(ck, "coded_gradient_matrix", f"{label}, {route} route",
+                      lambda: cg.coded_gradient_matrix(x, w, co),
+                      lambda: ref.coded_gradient_matrix(x, w, co),
+                      RL.gradient_work(n, mk, d, 10, 1), reps=5)
+        del x, w, co, want
+        torch.cuda.empty_cache()
+
+    # (d) the wide route's four kernels at the ten-class fits' shapes
+    op = fused_operands(ck, n, mk, d, 10, 1)
+    args, kw = op["args"], op["kw"]
+    x, w, co = args[:3]
+    worst_rows(ck, x, w)
+    what = f"N={n} m={mk} d={d} C=10"
     xt = x.transpose(1, 2)
     z = mm.modmatmul_batched(x, w)
     assert mm.path_of(x, w) == "rowdot" and mm.path_of(xt, z) == "colsum"
@@ -3201,7 +3340,7 @@ def wide_kernel_rows(ck: Checker, n: int, mk: int, d: int) -> dict:
     new_w = fs.epilogue(f, *args[3:], **kw)
     ck.compare("fused_step.wide_epilogue", new_w,
                ref.fused_epilogue(f, *args[3:], **kw), what)
-    el = n * d
+    el = n * d * 10
     epi_work = (RL.OPS_PER_FIELD_MAC * 4 * el, 4.0 * (7 * el + 3 * n))
     rows["fused_step.wide_z"] = timed_row(
         ck, "fused_step.wide_z", f"Z = X~ W~ {tuple(x.shape)}@"
@@ -3218,46 +3357,74 @@ def wide_kernel_rows(ck: Checker, n: int, mk: int, d: int) -> dict:
         lambda: ref.modmatmul_batched(xt, g),
         RL.gemm_work(xt.shape, xt.stride(), g.shape, g.stride()))
     rows["fused_step.wide_epilogue"] = timed_row(
-        ck, "fused_step.wide_epilogue", f"epilogue N={n} d={d} C=1",
+        ck, "fused_step.wide_epilogue", f"epilogue N={n} d={d} C=10",
         lambda: fs.epilogue(f, *args[3:], **kw),
         lambda: ref.fused_epilogue(f, *args[3:], **kw), epi_work, reps=20)
+    for name in WIDE_ENTRIES:
+        if name != "fused_step.cluster":
+            rows[name] = dict(rows[name], workload=WIDE10_NAME)
     del op, args, x, w, co, xt, z, g, f, new_w
     torch.cuda.empty_cache()
-    return {k: dict(r, workload=WIDE_NAME) for k, r in rows.items()}
+    return rows
 
 
-def wide_counts_ok(counts: dict, iters: int, fused: bool,
+def wide_counts_ok(counts: dict, iters: int, fused: bool, route: str,
                    what: str = "") -> None:
-    """The wide route ran once a step (with the fused step's epilogue when
-    `fused`) and the gradient kernels never; no GEMM took the tiled
-    kernel."""
-    assert counts["wide:gradient"] == iters, (what, counts)
-    assert counts["wide:epilogue"] == (iters if fused else 0), (what, counts)
+    """The run's route past d = 58,004 ran once a step -- the cluster
+    kernel, or the wide route (with the fused step's epilogue when
+    `fused`) -- the other never, and the gradient kernels' body never; no
+    GEMM took the tiled kernel."""
+    cluster = route == "cluster"
+    assert counts["wide:cluster"] == (iters if cluster else 0), \
+        (what, counts)
+    assert counts["wide:gradient"] == (0 if cluster else iters), \
+        (what, counts)
+    assert counts["wide:epilogue"] == (iters if fused and not cluster
+                                       else 0), (what, counts)
     for name in ("fused_step", "coded_gradient_batched",
                  "coded_gradient_matrix", "coded_gradient"):
         assert counts[name] == 0, (what, name, counts)
     assert counts["gemm:tiled"] == 0, (what, counts)
-    assert counts["gemm:rowdot"] >= iters and counts["gemm:colsum"] >= iters
+    if not cluster:
+        assert counts["gemm:rowdot"] >= iters and \
+            counts["gemm:colsum"] >= iters, (what, counts)
+
+
+def profile_top(step, state, top: int = 8) -> dict:
+    """Two steps from `state` under torch.profiler
+    (launch_counter.profile_steps): wall and device ms a step, idle share,
+    kernels a step, and the `top` kernels by device ms over the two
+    steps."""
+    from repro_torch.launch import launch_counter
+    summary, _, _ = launch_counter.profile_steps(step, state)
+    by_kernel = sorted(summary.pop("device_by_kernel").items(),
+                       key=lambda kv: -kv[1]["device_ms"])
+    return dict(summary, top_kernels=[
+        dict(name=k[:80], **v) for k, v in by_kernel[:top]])
 
 
 def phase_wide(ck: Checker, np) -> tuple:
-    """The coded gradient's wide route: its kernels at the full shape, then
-    api.fit of the wide workloads (d = 65,536) on the card, fused, siloed,
-    ten-class siloed (FULL_ITERS each) and sharded:4 (WIDE_SHARDED_ITERS,
-    against jit), fused and siloed bit-equal, the last steps re-checked,
-    two fused steps profiled, and the fused result served at
-    WIDE_SERVE_BATCH (the split-K GEMM at K = 65,536).  Returns (the
-    kernels-line rows, summary, launch counts by run)."""
+    """The coded gradient past d = 58,004: its kernels at the full shape,
+    then api.fit of the wide workloads (d = 65,536) on the card, fused,
+    siloed (the cluster route), ten-class siloed and ten-class fused (the
+    wide route; FULL_ITERS each) and sharded:4 (WIDE_SHARDED_ITERS, against
+    jit), each schedule's pair bit-equal, the last steps re-checked, two
+    fused steps and two ten-class siloed steps profiled, and the fused
+    result served at WIDE_SERVE_BATCH (the split-K GEMM at K = 65,536).
+    Returns (the kernels-line rows, summary, launch counts by run)."""
     torch = ck.torch
     from repro_torch import api
     from repro_torch.core import meshutil
     from repro_torch.kernels import coded_gradient as cg
     from repro_torch.kernels import fused_step as fs
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops, plan, ref
     from repro_torch.serve import coded
     t_phase = time.perf_counter()
     wl, wl10 = wide_workloads()
     mk = -(-wl.m // wl.cfg.k)
+    route, route10 = plan.gradient_route(wl.d, 1), plan.gradient_route(wl.d,
+                                                                       10)
+    assert route == "cluster", route
     torch.cuda.empty_cache()
     rows = wide_kernel_rows(ck, wl.n_clients, mk, wl.d)
     log(f"wide: kernels at the full shape equal their plain versions "
@@ -3273,7 +3440,7 @@ def phase_wide(ck: Checker, np) -> tuple:
     for g, w_, part in zip(got, want, ("f", "new_w")):
         ck.compare("fused_step", g, w_, f"{WIDE_NAME} last step {part}")
     del calls, args, kw, got, want
-    wide_counts_ok(counts, FULL_ITERS, True, "fused")
+    wide_counts_ok(counts, FULL_ITERS, True, route, "fused")
     weights = np.asarray(res.weights)
     assert weights.shape == (wl.d,) and np.isfinite(weights).all()
     summary = {"fused": run_summary(res, counts, peak)}
@@ -3327,14 +3494,14 @@ def phase_wide(ck: Checker, np) -> tuple:
     same_model(np, sres, res, "wide siloed vs fused")
     np.testing.assert_array_equal(sres.state.w_shares.cpu().numpy(),
                                   res.state.w_shares.cpu().numpy())
-    wide_counts_ok(scounts, FULL_ITERS, False, "siloed")
+    wide_counts_ok(scounts, FULL_ITERS, False, route, "siloed")
     summary["siloed"] = run_summary(sres, scounts, speak)
     log(f"wide: siloed {summary['siloed']['ms_per_iter']:.3f} ms/iter, "
         f"bit-equal to the fused run; launches {scounts}")
     res.state = sres.state = None
     torch.cuda.empty_cache()
 
-    # (d) ten classes, siloed
+    # (d) ten classes, siloed, with two more steps profiled
     mres, mcounts, mcalls, mpeak = fit_full(
         ck, "0", record=("coded_gradient_matrix",), workload=WIDE10_NAME)
     x, w, co = mcalls["coded_gradient_matrix"][-1][0]
@@ -3342,18 +3509,39 @@ def phase_wide(ck: Checker, np) -> tuple:
                ref.coded_gradient_matrix(x, w, co),
                f"{WIDE10_NAME} siloed last step")
     del mcalls, x, w, co
-    wide_counts_ok(mcounts, FULL_ITERS, False, "ten-class siloed")
+    wide_counts_ok(mcounts, FULL_ITERS, False, route10, "ten-class siloed")
     mw = np.asarray(mres.weights)
     assert mw.shape == (wl.d, 10) and np.isfinite(mw).all()
     summary["siloed C=10"] = run_summary(mres, mcounts, mpeak)
+    set_schedule("0")
+    try:
+        proto10 = api.protocols.driver(wl10, torch.device("cuda"))
+        assert proto10.fused_mode == "0"
+        summary["siloed C=10"]["profile"] = profile_top(proto10.iteration,
+                                                        mres.state)
+    finally:
+        set_schedule("1")
     log(f"wide: {WIDE10_NAME} siloed "
         f"{summary['siloed C=10']['ms_per_iter']:.3f} ms/iter, peak "
         f"{summary['siloed C=10']['peak_gib']:.2f} GiB, accuracy "
         f"{mres.final_accuracy:.4f}; launches {mcounts}")
+    log(f"wide: {WIDE10_NAME} siloed, two steps profiled: "
+        f"{summary['siloed C=10']['profile']}")
     mres.state = None
     torch.cuda.empty_cache()
 
-    # (e) sharded:4 against jit
+    # (e) ten classes, fused (the wide route's epilogue), equal to siloed
+    fres, fcounts, _, fpeak = fit_full(ck, "1", workload=WIDE10_NAME)
+    same_model(np, fres, mres, "wide ten-class fused vs siloed")
+    wide_counts_ok(fcounts, FULL_ITERS, True, route10, "ten-class fused")
+    summary["fused C=10"] = run_summary(fres, fcounts, fpeak)
+    log(f"wide: {WIDE10_NAME} fused "
+        f"{summary['fused C=10']['ms_per_iter']:.3f} ms/iter, bit-equal to "
+        f"the siloed run; launches {fcounts}")
+    fres.state = None
+    torch.cuda.empty_cache()
+
+    # (f) sharded:4 against jit
     mesh = meshutil.client_mesh(SHARDED_N, "cuda")
     api.fit("smoke", "copml", mesh, iters=1, history=False, device="cuda")
     jres = api.fit(wl, "copml", "jit", key=0, iters=WIDE_SHARDED_ITERS,
@@ -3361,7 +3549,7 @@ def phase_wide(ck: Checker, np) -> tuple:
     shres, shcounts, shpeak = fit_sharded(ck, wl, SHARDED_ENGINE,
                                           WIDE_SHARDED_ITERS)
     same_state(np, shres, jres, f"wide {SHARDED_ENGINE} vs jit")
-    sharded_ranks_ok(shres, WIDE_SHARDED_ITERS, "wide", mesh)
+    sharded_ranks_ok(shres, WIDE_SHARDED_ITERS, route, mesh)
     summary[SHARDED_ENGINE] = dict(run_summary(shres, shcounts, shpeak),
                                    ranks=shres.timings["ranks"])
     log(f"wide: {SHARDED_ENGINE} {WIDE_SHARDED_ITERS} steps bit-equal to "
@@ -3373,6 +3561,7 @@ def phase_wide(ck: Checker, np) -> tuple:
     log(f"wide: phase 14 took {summary['phase_s']:.1f} s")
     runs = {f"fused {WIDE_NAME}": counts, f"siloed {WIDE_NAME}": scounts,
             f"siloed {WIDE10_NAME}": mcounts,
+            f"fused {WIDE10_NAME}": fcounts,
             f"{SHARDED_ENGINE} {WIDE_NAME}": shcounts}
     return rows, summary, runs
 
@@ -3407,6 +3596,16 @@ COMPARE_SHAPES = [
     ("serving score GEMM, batch 32", "modmatmul", (32, 3073), (3073, 50), 0),
     ("serving score GEMM, batch 128", "modmatmul", (128, 3073), (3073, 50),
      0),
+    ("sharded rank scores, batch 1", "modmatmul", (1, 3073), (3073, 13), 0),
+    ("sharded rank scores, batch 32", "modmatmul", (32, 3073), (3073, 13), 0),
+    ("sharded rank scores, batch 128", "modmatmul", (128, 3073), (3073, 13),
+     0),
+    # past d = 58,004: the cluster route here, the wide route before
+    ("fused_step wide d=65536", "fused_step", (50, 156, 65536), None, 1),
+    ("coded_gradient_batched wide d=65536", "coded_gradient_batched",
+     (50, 156, 65536), None, 1),
+    ("coded_gradient_matrix wide d=65536 C=10", "coded_gradient_matrix",
+     (50, 156, 65536), None, 10),
     # (label, "poly_eval", (L,), None, degree)
     ("poly_eval L=45100 degree 1", "poly_eval", (45100,), None, 1),
     ("poly_eval L=2^26 degree 1", "poly_eval", (1 << 26,), None, 1),
@@ -3558,13 +3757,14 @@ def main() -> int:
         OUT_DIR.mkdir(exist_ok=True)
         (OUT_DIR / "chip_smoke_wide.json").write_text(json.dumps(
             dict(wide=wide, runs=runs, shapes=ck.rows), indent=1))
-        run = f"fused {WIDE_NAME}"
         kernels = kernel_entries(
             ck, list(WIDE_ENTRIES), rows, {},
-            {k: runs[run][count_key(k)] for k in WIDE_ENTRIES},
-            {k: run for k in WIDE_ENTRIES},
+            {k: runs[WIDE_RUN[k]][count_key(k)] for k in WIDE_ENTRIES},
+            dict(WIDE_RUN),
             {k: {r: c[count_key(k)] for r, c in runs.items()}
              for k in WIDE_ENTRIES})
+        for k in kernels:
+            assert k["launches"] > 0, f"{k['name']} was not launched"
         finish(torch, smi, kernels)
         return 0
     rows = phase_kernels(ck, args.quick)
@@ -3628,9 +3828,9 @@ def main() -> int:
             path[name] = f"{run} cifar10_case2"
             by_path[name] = {f"{r} cifar10_case2": c.get(key, 0)
                              for r, c in runs.items()}
-        # the wide route's kernels: launches on the wide fused run
+        # the kernels past d = 58,004: launches on their wide fused run
         for name in WIDE_ENTRIES:
-            run = f"fused {WIDE_NAME}"
+            run = WIDE_RUN[name]
             counts[name] = wide_runs[run][count_key(name)]
             assert counts[name] > 0, f"{name} was not launched on {run}"
             path[name] = run

@@ -21,13 +21,18 @@ gradient_plan and strip_run): bm = 8 and two ~98 KB stages at d = 3073,
 C = 1, one strip per resident CTA.
 
 The kernel needs one row of X~ in a block's shared memory, so past
-plan.max_d(C) (58,004 at C = 1) the gradient takes the wide route
-(plan.gradient_route; the TPU kernel chunks d instead): `wide_gradient`
-runs Z = X~ W~ on modmatmul's row-dot kernel, ghat(Z) on poly_eval and
-X~^T ghat(Z) on the column-sum kernel.  It reads X~ twice, so its bound
-is twice the body's: ~1.2 ms at N = 50, m = 156, d = 65,536 (2.05 GB).
-WIDE_LAUNCHES counts the wide gradients ("gradient": one each of the
-three launches) and the fused step's epilogues ("epilogue").
+plan.max_d(C) (58,004 at C = 1) the gradient takes another route
+(plan.gradient_route; the TPU kernel chunks d instead).  Up to
+plan.cluster_max_d(), at C = 1, `cluster_gradient` runs the cluster
+kernel (csrc/coded_gradient_cluster.cuh): a thread-block cluster holds
+each row's column slices in its CTAs' shared memory and sums z across
+them, so X~ is still read once (0.61 ms bound at N = 50, m = 156,
+d = 65,536; 2.05 GB).  Past that, or at C > 1, `wide_gradient` runs
+Z = X~ W~ on modmatmul's row-dot kernel, ghat(Z) on poly_eval and
+X~^T ghat(Z) on the column-sum kernel; it reads X~ twice.  WIDE_LAUNCHES
+counts the cluster gradients ("cluster", fused steps included), the wide
+gradients ("gradient": one each of the three launches) and the fused
+step's epilogues on a wide gradient ("epilogue").
 """
 
 from __future__ import annotations
@@ -40,14 +45,17 @@ import torch
 from . import build
 from . import field_poly as _fp
 from . import modmatmul as _mm
-from .plan import MAX_DEGREE, gradient_plan, gradient_route, strip_run
+from .plan import (MAX_DEGREE, cluster_plan, gradient_plan, gradient_route,
+                   strip_run)
 
 MODES = {"reg": 0, "smem": 1, "atomic": 2}     # csrc GradMode
-WIDE_STEPS = ("gradient", "epilogue")
+WIDE_STEPS = ("gradient", "epilogue", "cluster")
 WIDE_LAUNCHES: collections.Counter = collections.Counter()
 
 _FN = None
+_CLUSTER_FN = None
 _SLOTS: dict = {}       # (library, ept, C == 1, smem) -> resident CTAs
+_CLUSTERS: dict = {}    # (library, ept, smem, k) -> resident clusters
 
 
 def _fn():
@@ -80,6 +88,51 @@ def _slots(lib: str, ept: int, c: int, smem: int) -> int:
                                f"failed: CUDA error {err}")
         _SLOTS[key] = slots.value
     return _SLOTS[key]
+
+
+def _cluster_fn():
+    global _CLUSTER_FN
+    if _CLUSTER_FN is None:
+        fn = build.load("coded_gradient").repro_coded_gradient_cluster
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 10
+                       + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _CLUSTER_FN = fn
+    return _CLUSTER_FN
+
+
+def _clusters(lib: str, ept: int, smem: int, k: int) -> int:
+    """Resident clusters of k CTAs of the cluster kernel's instance in
+    library `lib` (csrc/coded_gradient_cluster.cuh cluster_slots), asked
+    once per instance, shared-memory size and k."""
+    key = (lib, ept, smem, k)
+    if key not in _CLUSTERS:
+        fn = getattr(build.load(lib), f"repro_{lib}_cluster_slots")
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                       ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        clusters = ctypes.c_int(0)
+        err = fn(ept, 1, smem, k, ctypes.byref(clusters))
+        if err:
+            raise RuntimeError(f"{lib}: cluster gradient occupancy query "
+                               f"failed: CUDA error {err}")
+        _CLUSTERS[key] = clusters.value
+    return _CLUSTERS[key]
+
+
+def cluster_args(lib: str, nb: int, m: int, d: int, c: int,
+                 k: int | None = None) -> tuple:
+    """(bm, stages, mode, ept, k, cw, slot, smem, run, clusters): every
+    launch parameter of the cluster gradient kernel in library `lib`, from
+    plan.cluster_plan (at cluster size `k` when given) and plan.strip_run
+    over the resident clusters."""
+    pl = cluster_plan(m, d, c, k)
+    slots = _clusters(lib, pl["ept"], pl["smem"], pl["k"])
+    run, clusters = strip_run(nb * -(-m // pl["bm"]), slots)
+    return (pl["bm"], pl["stages"], MODES[pl["mode"]], pl["ept"], pl["k"],
+            pl["cw"], pl["slot"], pl["smem"], run, clusters)
 
 
 def plan_args(lib: str, nb: int, m: int, d: int, c: int) -> tuple:
@@ -124,8 +177,11 @@ def coded_gradient_matrix(x, w, coeffs):
         return f
     if m == 0:
         return f.zero_()
-    if gradient_route(d, c) == "wide":
+    route = gradient_route(d, c)
+    if route == "wide":
         return wide_gradient(x, w, coeffs)
+    if route == "cluster":
+        return cluster_gradient(x, w, coeffs)
     plan = plan_args("coded_gradient", nb, m, d, c)
     facc = torch.zeros((nb, d, c), dtype=torch.int64, device=x.device)
     wt = w.transpose(1, 2).contiguous()          # class-major: a view at C=1
@@ -135,6 +191,28 @@ def coded_gradient_matrix(x, w, coeffs):
     if err:
         raise RuntimeError(f"coded_gradient kernel launch failed: CUDA error "
                            f"{err}")
+    return f
+
+
+def cluster_gradient(x, w, coeffs, k: int | None = None):
+    """f[n] = x[n]^T ghat(x[n] @ w[n]) mod p on the cluster kernel, operands
+    as coded_gradient_matrix's (checked there; m >= 1) with C = 1 (the
+    plan raises otherwise), at cluster size `k` when given
+    (plan.cluster_plan's otherwise).  Returns (N, d, 1) int32."""
+    nb, m, d = x.shape
+    c = w.shape[2]
+    plan = cluster_args("coded_gradient", nb, m, d, c, k)
+    facc = torch.zeros((nb, d, c), dtype=torch.int64, device=x.device)
+    f = torch.empty((nb, d, c), dtype=torch.int32, device=x.device)
+    wt = w.transpose(1, 2).contiguous()          # class-major: a view at C=1
+    err = _cluster_fn()(x.data_ptr(), wt.data_ptr(), coeffs.data_ptr(),
+                        coeffs.shape[0] - 1, facc.data_ptr(), f.data_ptr(),
+                        nb, m, d, c, *plan,
+                        torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"coded_gradient cluster kernel launch failed: "
+                           f"CUDA error {err}")
+    WIDE_LAUNCHES["cluster"] += 1
     return f
 
 

@@ -22,17 +22,21 @@
 //                          minus r0sh, * inv(2^k1), w' = wsh - delta.
 //
 // Past d ~ 58 K one row of X~ no longer fits a block's shared memory, and
-// the step takes the wide route (kernels/plan.py gradient_route): the
-// gradient f comes from modmatmul's row-dot and column-sum kernels and
-// poly_eval as int32 values < p, and repro_fused_epilogue runs the same
-// epilogue on it (the int32 instance, which reads f and writes no copy).
+// the step takes one of two routes (kernels/plan.py gradient_route): the
+// cluster route, repro_fused_step_cluster, where cluster_grad_kernel
+// (coded_gradient_cluster.cuh) spreads each row over a thread-block
+// cluster and reads X~ once, then the same epilogue; or, past the
+// cluster's reach, the wide route: the gradient f comes from modmatmul's
+// row-dot and column-sum kernels and poly_eval as int32 values < p, and
+// repro_fused_epilogue runs the same epilogue on it (the int32 instance,
+// which reads f and writes no copy).
 //
 // Bound on an H100: reading X~ once (N * m * d * 4 bytes, 554 MB at the
 // paper's cifar10_case2 shape) over 3.35 TB/s, ~0.17 ms; the epilogue's
 // ~6 MB add ~2 us.  Every sum is of canonical values < p and products
 // < 2^52, bounded well inside uint64, and reduced with reduce_p.
 
-#include "coded_gradient.cuh"
+#include "coded_gradient_cluster.cuh"
 
 namespace {
 
@@ -114,6 +118,27 @@ fused_epilogue_kernel(const F* __restrict__ facc,
   }
 }
 
+// The epilogue on the gradient kernels' uint64 accumulator: f = facc mod p
+// into f_out, then the step.  Returns cudaGetLastError().
+int launch_epilogue(void* facc, const void* adv_off, const void* dfull,
+                    const void* rvec, const void* base, const void* xty,
+                    const void* wsh, const void* radd, const void* r0sh,
+                    void* f_out, void* w_out, int N, int d, int C,
+                    int64_t q_eta, int64_t inv2k1, int k1, cudaStream_t s) {
+  const int64_t L = (int64_t)d * C;
+  const unsigned epi_blocks = (unsigned)((L + kEpiLanes - 1) / kEpiLanes);
+  fused_epilogue_kernel<unsigned long long>
+      <<<epi_blocks, kEpiLanes * kEpiWarps, 0, s>>>(
+      static_cast<const unsigned long long*>(facc),
+      static_cast<const int32_t*>(adv_off), static_cast<const int32_t*>(dfull),
+      static_cast<const int32_t*>(rvec), static_cast<const int32_t*>(base),
+      static_cast<const int32_t*>(xty), static_cast<const int32_t*>(wsh),
+      static_cast<const int32_t*>(radd), static_cast<const int32_t*>(r0sh),
+      static_cast<int32_t*>(f_out), static_cast<int32_t*>(w_out), N, L,
+      (uint32_t)q_eta, (uint32_t)inv2k1, k1);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Resident CTAs of the gradient kernel's (ept, C) instance at `smem` bytes
@@ -148,18 +173,40 @@ extern "C" int repro_fused_step(const void* x, const void* w,
                     degree, N, m, d, C, bm, stages, mode, sbytes, run};
   cudaError_t err = launch_coded_grad(ga, ept, (size_t)smem, ctas, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t L = (int64_t)d * C;
-  const unsigned epi_blocks = (unsigned)((L + kEpiLanes - 1) / kEpiLanes);
-  fused_epilogue_kernel<unsigned long long>
-      <<<epi_blocks, kEpiLanes * kEpiWarps, 0, s>>>(
-      static_cast<const unsigned long long*>(facc),
-      static_cast<const int32_t*>(adv_off), static_cast<const int32_t*>(dfull),
-      static_cast<const int32_t*>(rvec), static_cast<const int32_t*>(base),
-      static_cast<const int32_t*>(xty), static_cast<const int32_t*>(wsh),
-      static_cast<const int32_t*>(radd), static_cast<const int32_t*>(r0sh),
-      static_cast<int32_t*>(f_out), static_cast<int32_t*>(w_out), N, L,
-      (uint32_t)q_eta, (uint32_t)inv2k1, k1);
-  return static_cast<int>(cudaGetLastError());
+  return launch_epilogue(facc, adv_off, dfull, rvec, base, xty, wsh, radd,
+                         r0sh, f_out, w_out, N, d, C, q_eta, inv2k1, k1, s);
+}
+
+// Resident clusters of k CTAs of the cluster kernel's ept instance (C = 1) at
+// `smem` bytes (coded_gradient_cluster.cuh cluster_slots), into *clusters.
+extern "C" int repro_fused_step_cluster_slots(int ept, int C, int64_t smem,
+                                              int k, int* clusters) {
+  return static_cast<int>(cluster_slots(ept, C, (size_t)smem, k, clusters));
+}
+
+// The same step with the gradient on cluster_grad_kernel; operands as
+// repro_fused_step's, and bm, stages, mode, ept, k, cw, slot, smem, run and
+// clusters kernels/coded_gradient.py cluster_args'.  Returns
+// cudaGetLastError() after both launches (0 = success).
+extern "C" int repro_fused_step_cluster(
+    const void* x, const void* w, const void* coeffs, int degree,
+    const void* adv_off, const void* dfull, const void* rvec,
+    const void* base, const void* xty, const void* wsh, const void* radd,
+    const void* r0sh, void* facc, void* f_out, void* w_out, int N, int m,
+    int d, int C, int bm, int stages, int mode, int ept, int k, int cw,
+    int64_t slot, int64_t smem, int run, int clusters, int64_t q_eta,
+    int64_t inv2k1, int k1, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  const ClusterArgs ga{static_cast<const int32_t*>(x),
+                       static_cast<const int32_t*>(w),
+                       static_cast<const int32_t*>(coeffs),
+                       static_cast<unsigned long long*>(facc),
+                       degree, N, m, d, bm, stages, mode, k, cw, slot, run};
+  if (C != 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = launch_cluster_grad(ga, ept, (size_t)smem, clusters, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_epilogue(facc, adv_off, dfull, rvec, base, xty, wsh, radd,
+                         r0sh, f_out, w_out, N, d, C, q_eta, inv2k1, k1, s);
 }
 
 // The epilogue alone, on a gradient f (N, d, C) of int32 values < p that

@@ -80,6 +80,11 @@
 // most kch / 32 <= kNoReduceTerms products, reduces once with reduce_p, and
 // a multi-value butterfly (field.cuh multi_warp_sum) sums the warp's
 // RB x CMAX values.  A chunk of K past the first adds into the output.
+// When M x batch would leave the card idle (a sharded rank's serving scores
+// (B, 3073) @ (3073, 13): one CTA walked all of K at B = 1), kernels/plan.py
+// rowdot_launch also cuts K over gridDim.z into splits of ks rows (a
+// multiple of 32): each split writes (batch, M, N) partials < p and
+// colsum_combine sums them, as for the split-K kernel.
 //
 // splitk_kernel (M <= 128, K > 64 and B's columns unit stride, when no path
 // above takes it: serving's (B, 3073) @ (3073, 50) scores, B <= 128).  So
@@ -365,14 +370,17 @@ __device__ __forceinline__ void rowdot_loads(uint32_t (&xv)[U][RB],
                      ? (uint32_t)__ldg(xr[r] + j + 32 * u) : 0u;
 }
 
-// Rows [blockIdx.x * run, + run) of batch blockIdx.y; B[b] staged
-// class-major as bs[c * kch + k], classes past N zero.
-template <int CMAX>
+// Rows [blockIdx.x * run, + run) of batch blockIdx.y (with SPLIT, rows
+// [blockIdx.z * ks, + ks) of K into c's split blockIdx.z; an instance of
+// its own, as the split's arithmetic cost the unsplit kernel 8 registers
+// and 45% of its time at CMAX = 10 on an H100); B[b] staged class-major as
+// bs[c * kch + k], classes past N zero.
+template <int CMAX, bool SPLIT>
 __global__ void __launch_bounds__(kRowdotThreads)
 rowdot_kernel(const int32_t* __restrict__ a, int64_t sab, int64_t sam,
               const int32_t* __restrict__ b, int64_t sbb, int64_t sbk,
               int64_t sbn, int32_t* __restrict__ c, int M, int N, int K,
-              int kch, int run) {
+              int kch, int run, int ks) {
   constexpr int RB = RowdotShape<CMAX>::RB;
   constexpr int U = RowdotShape<CMAX>::U;
   constexpr int V = RowdotShape<CMAX>::V;
@@ -384,6 +392,13 @@ rowdot_kernel(const int32_t* __restrict__ a, int64_t sab, int64_t sam,
   const int32_t* ab = a + bz * sab;
   const int32_t* bb = b + bz * sbb;
   int32_t* cb = c + bz * M * N;
+  if (SPLIT) {              // this split's rows of K, as a GEMM of its own
+    const int64_t klo = (int64_t)blockIdx.z * ks;
+    ab += klo;
+    bb += klo * sbk;
+    cb += (int64_t)blockIdx.z * gridDim.y * M * N;
+    K = (int)min((int64_t)K - klo, (int64_t)ks);
+  }
 
   for (int k0 = 0; k0 < K; k0 += kch) {
     const int kn = min(kch, K - k0);
@@ -461,9 +476,13 @@ template <int CMAX>
 cudaError_t open_rowdot(size_t smem) {
   static size_t opened = 0;
   if (smem <= opened) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      rowdot_kernel<CMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(
+      rowdot_kernel<CMAX, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(rowdot_kernel<CMAX, true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
   if (err == cudaSuccess) opened = smem;
   return err;
 }
@@ -471,13 +490,27 @@ cudaError_t open_rowdot(size_t smem) {
 template <int CMAX>
 cudaError_t launch_rowdot(const int32_t* a, int64_t sab, int64_t sam,
                           const int32_t* b, int64_t sbb, int64_t sbk,
-                          int64_t sbn, int32_t* c, int batch, int M, int N,
-                          int K, int kch, int run, int cpb, size_t smem,
+                          int64_t sbn, int32_t* c, uint32_t* part, int batch,
+                          int M, int N, int K, int kch, int run, int cpb,
+                          int splits, int ks, size_t smem,
                           cudaStream_t stream) {
   cudaError_t err = open_rowdot<CMAX>(smem);
   if (err != cudaSuccess) return err;
-  rowdot_kernel<CMAX><<<dim3(cpb, batch), kRowdotThreads, smem, stream>>>(
-      a, sab, sam, b, sbb, sbk, sbn, c, M, N, K, kch, run);
+  if (splits == 1) {
+    rowdot_kernel<CMAX, false><<<dim3(cpb, batch), kRowdotThreads, smem,
+                                 stream>>>(a, sab, sam, b, sbb, sbk, sbn, c,
+                                           M, N, K, kch, run, ks);
+    return cudaGetLastError();
+  }
+  rowdot_kernel<CMAX, true>
+      <<<dim3(cpb, batch, splits), kRowdotThreads, smem, stream>>>(
+      a, sab, sam, b, sbb, sbk, sbn, reinterpret_cast<int32_t*>(part), M, N,
+      K, kch, run, ks);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t L = (int64_t)batch * M * N;
+  colsum_combine<<<(unsigned)((L + kThreads - 1) / kThreads), kThreads, 0,
+                   stream>>>(part, c, L, splits);
   return cudaGetLastError();
 }
 
@@ -488,7 +521,7 @@ cudaError_t rowdot_slots(size_t smem, int* slots) {
   if (err != cudaSuccess) return err;
   int occ = 0, sms = 0, dev = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &occ, rowdot_kernel<CMAX>, kRowdotThreads, smem);
+      &occ, rowdot_kernel<CMAX, false>, kRowdotThreads, smem);
   if (err != cudaSuccess) return err;
   if (occ < 1) return cudaErrorInvalidConfiguration;
   err = cudaGetDevice(&dev);
@@ -736,32 +769,39 @@ extern "C" int repro_modmatmul_colsum(const void* a, int64_t sab, int64_t sam,
 
 // The same product on rowdot_kernel's (cmax) instance, as kernels/plan.py
 // rowdot_launch decided: B staged kch rows of K at a time in smem bytes,
-// strips of run rows, cpb CTAs a batch.  Refused unless A's K-stride is 1,
+// strips of run rows, cpb CTAs a batch, K cut into splits of ks rows; part
+// is a (splits, batch, M, N) int32 scratch (unused when splits = 1) that
+// colsum_combine sums into c.  Refused unless A's K-stride is 1,
 // 1 <= N <= cmax, kch covers at most kRowdotMaxChunk rows (a lane's
 // kch / 32 <= kNoReduceTerms products) and fits smem, and the strips cover
-// M exactly.  Returns cudaGetLastError() after the launch (0 = success).
+// M and the splits K exactly.  Returns cudaGetLastError() after the
+// launches (0 = success).
 extern "C" int repro_modmatmul_rowdot(const void* a, int64_t sab, int64_t sam,
                                       int64_t sak, const void* b, int64_t sbb,
                                       int64_t sbk, int64_t sbn, void* c,
-                                      int batch, int M, int N, int K,
-                                      int cmax, int kch, int run, int cpb,
+                                      void* part, int batch, int M, int N,
+                                      int K, int cmax, int kch, int run,
+                                      int cpb, int splits, int ks,
                                       int64_t smem, void* stream) {
   if (sak != 1 || batch < 1 || batch > 65535 || M < 1 || K < 1 || N < 1 ||
-      N > cmax || cmax > kRowdotMaxN || kch < 1 || kch > K ||
+      N > cmax || cmax > kRowdotMaxN || kch < 1 || kch > ks ||
       kch > kRowdotMaxChunk || smem < (int64_t)4 * cmax * kch ||
       smem > kSmemMax || run < 1 || cpb < 1 || (int64_t)run * cpb < M ||
-      (int64_t)run * (cpb - 1) >= M)
+      (int64_t)run * (cpb - 1) >= M || splits < 1 || splits > 65535 ||
+      ks < 1 || (int64_t)splits * ks < K || (int64_t)(splits - 1) * ks >= K ||
+      (splits > 1 && (ks % 32 != 0 || part == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   auto s = static_cast<cudaStream_t>(stream);
   auto pa = static_cast<const int32_t*>(a);
   auto pb = static_cast<const int32_t*>(b);
   auto pc = static_cast<int32_t*>(c);
+  auto pp = static_cast<uint32_t*>(part);
   // the instances kernels/plan.py ROWDOT_CMAX names
 #define ROWDOT(CMAX)                                                        \
   if (cmax == CMAX)                                                         \
     return static_cast<int>(launch_rowdot<CMAX>(                            \
-        pa, sab, sam, pb, sbb, sbk, sbn, pc, batch, M, N, K, kch, run, cpb, \
-        (size_t)smem, s));
+        pa, sab, sam, pb, sbb, sbk, sbn, pc, pp, batch, M, N, K, kch, run,  \
+        cpb, splits, ks, (size_t)smem, s));
   ROWDOT(1) ROWDOT(2) ROWDOT(4) ROWDOT(8) ROWDOT(10) ROWDOT(16)
 #undef ROWDOT
   return static_cast<int>(cudaErrorInvalidValue);

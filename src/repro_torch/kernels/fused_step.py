@@ -16,10 +16,13 @@ Bound on an H100: reading X~ once, N * m * d * 4 bytes over 3.35 TB/s
 The gradient kernel's launch parameters (slice height, ring, accumulator
 mode, strips) are kernels/coded_gradient.py plan_args'.
 
-Past plan.max_d(C) the step takes the wide route (plan.gradient_route):
-coded_gradient.wide_gradient's three field kernels compute f, and
-`epilogue` runs the same epilogue kernel on it (its int32 instance), so a
-step's bits are the body's.
+Past plan.max_d(C) the step takes one of two routes (plan.gradient_route):
+"cluster", the cluster gradient kernel (csrc/coded_gradient_cluster.cuh:
+X~ still read once, each row spread over a thread-block cluster) then the
+same epilogue, with its launch parameters from coded_gradient.cluster_args;
+or "wide", where coded_gradient.wide_gradient's three field kernels compute
+f and `epilogue` runs the same epilogue kernel on it (its int32 instance).
+A step's bits are the body's on either.
 """
 
 from __future__ import annotations
@@ -29,11 +32,13 @@ import ctypes
 import torch
 
 from . import build
-from .coded_gradient import WIDE_LAUNCHES, plan_args, wide_gradient
+from .coded_gradient import (WIDE_LAUNCHES, cluster_args, plan_args,
+                             wide_gradient)
 from ..core.field import P
 from .plan import MAX_DEGREE, gradient_route
 
 _FN = None
+_CLUSTER_FN = None
 _EPI = None
 
 
@@ -49,6 +54,20 @@ def _fn():
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def _cluster_fn():
+    global _CLUSTER_FN
+    if _CLUSTER_FN is None:
+        fn = build.load("fused_step").repro_fused_step_cluster
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int]
+                       + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
+                       + [ctypes.c_int64] * 2 + [ctypes.c_int] * 2
+                       + [ctypes.c_int64] * 2 + [ctypes.c_int]
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _CLUSTER_FN = fn
+    return _CLUSTER_FN
 
 
 def _epi_fn():
@@ -127,16 +146,20 @@ def fused_step(x, w, coeffs, adv_off, dfull, rvec, base, xty, wsh, radd,
             and 1 <= coeffs.shape[0] <= MAX_DEGREE + 1 and 0 < k1 < 26):
         raise ValueError(f"fused_step: N={nb} (1..1024), m={m} (>= 1), degree "
                          f"{coeffs.shape[0] - 1}, k1={k1}")
-    if gradient_route(d, c) == "wide":
+    route = gradient_route(d, c)
+    if route == "wide":
         f = wide_gradient(x, w, coeffs)
         return f, epilogue(f, adv_off, dfull, rvec, base, xty, wsh, radd,
                            r0sh, q_eta=q_eta, inv2k1=inv2k1, k1=k1)
-    plan = plan_args("fused_step", nb, m, d, c)
+    if route == "cluster":
+        plan, launch = cluster_args("fused_step", nb, m, d, c), _cluster_fn()
+    else:
+        plan, launch = plan_args("fused_step", nb, m, d, c), _fn()
     facc = torch.zeros((nb, d, c), dtype=torch.int64, device=x.device)
     f = torch.empty((nb, d, c), dtype=torch.int32, device=x.device)
     new_w = torch.empty_like(f)
     wt = w.transpose(1, 2).contiguous()          # class-major: a view at C=1
-    err = _fn()(x.data_ptr(), wt.data_ptr(), coeffs.data_ptr(),
+    err = launch(x.data_ptr(), wt.data_ptr(), coeffs.data_ptr(),
                 coeffs.shape[0] - 1, adv_off.data_ptr(), dfull.data_ptr(),
                 rvec.data_ptr(), base.data_ptr(), xty.data_ptr(),
                 wsh.data_ptr(), radd.data_ptr(), r0sh.data_ptr(),
@@ -144,5 +167,8 @@ def fused_step(x, w, coeffs, adv_off, dfull, rvec, base, xty, wsh, radd,
                 nb, m, d, c, *plan, int(q_eta) % P, int(inv2k1) % P, k1,
                 torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"fused_step kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"fused_step {route} kernel launch failed: CUDA "
+                           f"error {err}")
+    if route == "cluster":
+        WIDE_LAUNCHES["cluster"] += 1
     return f, new_w

@@ -15,7 +15,9 @@ transposed view of the shares) reads 5.54 GB of shares once: it takes the
 column-sum kernel, a split-K GEMV whose lanes own columns of the shares and
 keep N uint64 sums each in registers.  The MPC baseline's Z = X W (A
 K-contiguous, N = C' <= 16) reads 591 MB of shares once: it takes the
-row-dot kernel, a GEMV a row of A against B staged in shared memory.
+row-dot kernel, a GEMV a row of A against B staged in shared memory
+(with K split over CTAs, and the splits combined, when the rows are too
+few to fill the card: a sharded rank's serving scores).
 Serving's scores (M = B <= 128 queries, K = d, N = N C') take the split-K
 kernel, which cuts K over enough CTAs to fill the card and combines their
 partials.  Everything else (strided B with large M and N) takes the tiled
@@ -44,7 +46,7 @@ _SLOTS: dict = {}       # (cmax, smem) -> resident rowdot CTAs
 _TILED = dict(kmax=0, cols=0, gx=0, groups=0, rpg=0)
 # C entry -> (pointers after A's and B's strides, ints, int64s after them)
 _ARGS = {"repro_modmatmul": (1, 9, 0), "repro_modmatmul_colsum": (2, 8, 0),
-         "repro_modmatmul_rowdot": (1, 8, 1),
+         "repro_modmatmul_rowdot": (2, 10, 1),
          "repro_modmatmul_splitk": (2, 9, 0)}
 
 
@@ -175,13 +177,20 @@ def colsum(a, b, out, launch: dict):
 
 def rowdot(a, b, out, launch: dict):
     """The row-dot kernel into `out` (B, M, N) as `launch` (plan.
-    rowdot_launch's dict) says; a's K-stride must be 1."""
+    rowdot_launch's dict) says; a's K-stride must be 1.  Its K splits, if
+    any, write (splits, B, M, N) partials that colsum's combine kernel
+    sums."""
     bsz, m, k = a.shape
+    n = b.shape[2]
+    part = out
+    if launch["splits"] > 1:
+        part = torch.empty((launch["splits"], bsz, m, n), dtype=torch.int32,
+                           device=a.device)
     err = _fn("repro_modmatmul_rowdot")(
         a.data_ptr(), *a.stride(), b.data_ptr(), *b.stride(), out.data_ptr(),
-        bsz, m, b.shape[2], k, launch["cmax"], launch["kch"], launch["run"],
-        launch["cpb"], launch["smem"],
-        torch.cuda.current_stream(a.device).cuda_stream)
+        part.data_ptr(), bsz, m, n, k, launch["cmax"], launch["kch"],
+        launch["run"], launch["cpb"], launch["splits"], launch["ks"],
+        launch["smem"], torch.cuda.current_stream(a.device).cuda_stream)
     if err:
         raise RuntimeError(f"modmatmul rowdot kernel launch failed: CUDA "
                            f"error {err}")

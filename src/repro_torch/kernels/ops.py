@@ -8,8 +8,8 @@ LAUNCHES counts the kernel launches of each op (CPU calls count nothing),
 so a run can show that its main path went through the kernels;
 gemm_path_counts breaks the field GEMM's launches down by kernel path.
 Past d = 58,004 (plan.gradient_route) a coded gradient or fused step
-launches no gradient kernel but the wide route's field kernels: it counts
-in wide_counts, not in LAUNCHES.
+launches no body of the gradient kernel but the cluster kernel or the wide
+route's field kernels: it counts in wide_counts, not in LAUNCHES.
 """
 
 from __future__ import annotations
@@ -46,16 +46,17 @@ def gemm_path_counts() -> dict:
 
 
 def wide_counts() -> dict:
-    """Since the last reset: "gradient", the wide route's gradients (each
-    one launch of the row-dot GEMM, poly_eval and the column-sum GEMM; the
-    GEMMs also count in gemm_path_counts), and "epilogue", the fused
-    step's epilogue launched on one."""
+    """Since the last reset: "cluster", the cluster route's gradients (a
+    coded gradient or a fused step on the cluster kernel); "gradient", the
+    wide route's (each one launch of the row-dot GEMM, poly_eval and the
+    column-sum GEMM; the GEMMs also count in gemm_path_counts); and
+    "epilogue", the fused step's epilogue launched on a wide one."""
     return {s: _cg.WIDE_LAUNCHES[s] for s in _cg.WIDE_STEPS}
 
 
 def _count_gradient(name: str, d: int, c: int) -> None:
-    """One launch of `name`'s gradient kernel, unless (d, C) took the wide
-    route (counted in wide_counts)."""
+    """One launch of `name`'s gradient kernel, unless (d, C) took the
+    cluster or the wide route (counted in wide_counts)."""
     if gradient_route(d, c) == "body":
         LAUNCHES[name] += 1
 

@@ -8,14 +8,18 @@ kernels' bounds), so the CPU tests reach the code that decides:
   `splitk_launch`: which modmatmul kernel a GEMM takes, the thin kernel's
   instance (`THIN_KMAX`) and grid, the column-sum kernel's instance
   (`COLSUM_CMAX`), K splits and grid, the row-dot kernel's instance, K
-  chunk, shared memory and row strips, and the split-K kernel's column
-  block, row groups and K splits;
+  chunk, shared memory, row strips and K splits, and the split-K
+  kernel's column block, row groups and K splits;
 - `gradient_plan`, `stage_bytes`, `strip_run`: the gradient kernel's
   accumulator mode, slice height, ring depth and stage size, shared
   memory, and the strips its CTAs walk;
-- `gradient_route`: whether a coded gradient takes that kernel ("body")
-  or, past the widest d whose row of X~ fits its shared memory, the wide
-  route of three field kernels ("wide");
+- `cluster_plan`, `cluster_smem`, `slot_bytes`: the cluster gradient
+  kernel's cluster size, column slice, accumulator mode, slice height,
+  ring depth and shared memory;
+- `gradient_route`: whether a coded gradient takes the gradient kernel
+  ("body"), past the widest d whose row of X~ fits its shared memory the
+  cluster kernel ("cluster", C = 1), or the wide route of three field
+  kernels ("wide");
 - `poly_launch`: poly_eval's kernel (one thread an element, or
   grid-stride) and its blocks.
 
@@ -24,9 +28,11 @@ It also holds numpy models of device code the CPU cannot run:
 `pass1_terms` (the products a lane of the gradient kernel's pass 1 sums
 before its one reduce), `slice_copy` (the 16-byte peel of each slice's
 bulk copy), `colsum_model` (the column-sum kernel's lane sums and the
-combine of its K splits), `horner_lazy` (poly_eval's lazy Horner step),
-and `wide_model` / `epilogue_model` (the wide route's three kernels, and
-csrc/fused_step.cu's epilogue).
+combine of its K splits), `rowdot_model` (the row-dot kernel's lanes,
+chunks and K splits), `horner_lazy` (poly_eval's lazy Horner step),
+`cluster_model` (the cluster kernel's per-rank partials, their sum across
+the cluster and pass 2), and `wide_model` / `epilogue_model` (the wide
+route's three kernels, and csrc/fused_step.cu's epilogue).
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ COLSUM_ROWS = 32                    # rows of B a warp stages at once
 COLSUM_TASKS_PER_SM = 1024          # ~16 waves of 64 resident warps
 ROWDOT_MAX_N = 16
 ROWDOT_CMAX = COLSUM_CMAX           # csrc/modmatmul.cu rowdot_kernel instances
+ROWDOT_WARPS = 16                   # csrc/modmatmul.cu kRowdotWarps
 ROWDOT_MAX_CHUNK = 32 * NO_REDUCE_TERMS   # a lane sums chunk / 32 products
 SPLITK_MAX_M = 128
 SPLITK_SUB = NO_REDUCE58_TERMS      # rows of K a pass: one reduce_p58
@@ -75,6 +82,11 @@ MAX_DEGREE = 63                     # ghat's coefficients: static smem
 GRAD_STATIC = 4 * (MAX_DEGREE + 1)  # static shared memory of the kernel
 BAR_BYTES = 64                      # the ring's mbarriers, at the front
 COPY_SLACK = 32                     # a slice rounded out to 16-byte ends
+
+# the cluster gradient kernel (csrc/coded_gradient_cluster.cuh): its
+# cluster sizes, 16 after NonPortableClusterSizeAllowed
+CLUSTER_SIZES = (2, 4, 8, 16)
+CLUSTER_BAR_BYTES = 128             # its mbarriers, at the front
 
 POLY_THREADS = 256
 POLY_EPT = 8                        # elements a poly_eval thread has in flight
@@ -200,23 +212,49 @@ def rowdot_shape(n: int, k: int) -> dict:
     return dict(cmax=cmax, kch=kch, smem=4 * cmax * kch)
 
 
+def rowdot_rows(cmax: int) -> int:
+    """Rows a rowdot_kernel CTA sums at once: ROWDOT_WARPS warps of RB
+    rows (csrc/modmatmul.cu RowdotShape: 4 at CMAX <= 2, 2 at <= 10, else
+    1)."""
+    return ROWDOT_WARPS * (4 if cmax <= 2 else 2 if cmax <= 10 else 1)
+
+
 @functools.lru_cache(maxsize=None)
 def rowdot_launch(m: int, n: int, k: int, batch: int, slots: int) -> dict:
     """How csrc/modmatmul.cu's rowdot_kernel runs a (batch, m, k) @
     (batch, k, n) GEMM when `slots` of its CTAs fit the card at once
     (SMs x CTAs an SM, from the kernel's occupancy at rowdot_shape's
-    shared memory): rowdot_shape's cmax, kch and smem, and
+    shared memory): rowdot_shape's cmax, and
 
-    run   rows of one batch a CTA walks (its strip): the `slots` CTAs are
-          dealt evenly over the batches and a strip never crosses one, so
-          each CTA stages B[b] once a chunk of K;
-    cpb   CTAs a batch (gridDim.x; the batch is gridDim.y)."""
+    run     rows of one batch a CTA walks (its strip): the `slots` CTAs
+            are dealt evenly over the batches and a strip never crosses
+            one, so each CTA stages B[b] once a chunk of K;
+    cpb     CTAs a batch (gridDim.x; the batch is gridDim.y);
+    splits  K cut over gridDim.z, when M x batch leaves the card idle:
+            the strips shrink to the fewest that keep every warp of a CTA
+            busy (rowdot_rows rows each), and K is cut into splits of ks
+            rows (a multiple of 32) so that strips x batch x splits fills
+            about `slots` CTAs.  Each split writes (batch, M, N) partials
+            < p that colsum_combine sums; splits = 1 (ks = K) writes the
+            output directly;
+    ks      rows of K a split;
+    kch     rows of K whose B a CTA stages at once (rowdot_shape's, at
+            most ks), and smem its 4 cmax kch bytes."""
     if m < 1 or batch < 1 or slots < 1:
         raise ValueError(f"rowdot GEMM takes M, batch, slots >= 1; got "
                          f"M={m}, batch={batch}, slots={slots}")
-    cpb = min(m, max(1, slots // batch))
-    run = -(-m // cpb)
-    return dict(rowdot_shape(n, k), run=run, cpb=-(-m // run))
+    shape = rowdot_shape(n, k)
+    strips = -(-m // rowdot_rows(shape["cmax"]))
+    splits = min(-(-k // 32), slots // (strips * batch))
+    if splits <= 1:
+        cpb = min(m, max(1, slots // batch))
+        run = -(-m // cpb)
+        return dict(shape, run=run, cpb=-(-m // run), splits=1, ks=k)
+    ks = -(-(-(-k // 32)) // splits) * 32
+    kch = min(shape["kch"], ks)
+    run = -(-m // strips)
+    return dict(shape, kch=kch, smem=4 * shape["cmax"] * kch, run=run,
+                cpb=-(-m // run), splits=-(-k // ks), ks=ks)
 
 
 @functools.lru_cache(maxsize=None)
@@ -248,27 +286,35 @@ def splitk_launch(m: int, n: int, k: int, batch: int, sms: int) -> dict:
     return dict(bn=bn, rg=rg, gx=gx, kc=kc, splits=-(-k // kc))
 
 
-def rowdot_model(a, b, kch: int) -> tuple:
+def rowdot_model(a, b, kch: int, ks: int | None = None) -> tuple:
     """numpy model of rowdot_kernel: a (batch, m, k), b (batch, k, n) field
-    values.  In each chunk of kch rows of K, lane l of a row's warp sums
-    the products of columns l, l + 32, ... of the chunk (at most
-    ceil(kch / 32)) in uint64 and reduces once with reduce_p; the 32 lanes'
-    values (< p each) sum below 2^31 and reduce; a chunk past the first
-    adds its result mod p.  Returns (the product mod p, the largest lane
-    sum as a Python int)."""
+    values, K cut into splits of ks rows (all of K when None).  In each
+    chunk of kch rows of a split, lane l of a row's warp sums the products
+    of columns l, l + 32, ... of the chunk (at most ceil(kch / 32)) in
+    uint64 and reduces once with reduce_p; the 32 lanes' values (< p each)
+    sum below 2^31 and reduce; a chunk past the split's first adds its
+    result mod p.  colsum_combine then sums the splits' partials (< p
+    each) in uint64 and reduces.  Returns (the product mod p, the largest
+    lane sum as a Python int)."""
     a = np.asarray(a, dtype=np.uint64)
     b = np.asarray(b, dtype=np.uint64)
     k = a.shape[2]
-    out, top = np.zeros(a.shape[:2] + b.shape[2:], np.uint64), 0
-    for k0 in range(0, k, kch):
-        warp = np.zeros_like(out)
-        for lane in range(32):
-            cols = np.arange(k0 + lane, min(k, k0 + kch), 32)
-            sums = a[:, :, cols] @ b[:, cols]              # exact below 2^64
-            top = max(top, int(sums.max(initial=0)))
-            warp += reduce_p(sums)
-        out = reduce_p(out + reduce_p(warp))
-    return out, top
+    ks = ks or k
+    parts, top = [], 0
+    for s0 in range(0, k, ks):
+        out = np.zeros(a.shape[:2] + b.shape[2:], np.uint64)
+        for k0 in range(s0, min(k, s0 + ks), kch):
+            warp = np.zeros_like(out)
+            for lane in range(32):
+                cols = np.arange(k0 + lane, min(k, s0 + ks, k0 + kch), 32)
+                sums = a[:, :, cols] @ b[:, cols]          # exact below 2^64
+                top = max(top, int(sums.max(initial=0)))
+                warp += reduce_p(sums)
+            out = reduce_p(out + reduce_p(warp))
+        parts.append(out)
+    if len(parts) == 1:
+        return parts[0], top
+    return reduce_p(np.sum(parts, axis=0, dtype=np.uint64)), top
 
 
 def colsum_model(a, b, kc: int) -> tuple:
@@ -368,16 +414,30 @@ def gradient_route(d: int, c: int) -> str:
     """How the card computes f[n] = X~[n]^T ghat(X~[n] W~[n]) for X~
     (N, m, d) and a (d, C) model, in the siloed and the fused schedule:
 
-    "body"  the gradient kernel (csrc/coded_gradient.cuh), which reads X~
-            once, wherever gradient_plan fits one row of X~ in a block's
-            shared memory (d <= max_d(C));
-    "wide"  past that: Z = X~ W~ on modmatmul's row-dot kernel (A's
-            K-stride 1, N = C <= 16), ghat(Z) on poly_eval, X~^T ghat(Z)
-            on its column-sum kernel (the transposed view, M-stride 1) --
-            the tiled kernel for C > 16 -- each exact mod p, so the bits
-            equal the body's; the fused step then runs its epilogue on f.
-            It reads X~ twice."""
-    return "body" if d <= max_d(c) else "wide"
+    "body"     the gradient kernel (csrc/coded_gradient.cuh), which reads
+               X~ once, wherever gradient_plan fits one row of X~ in a
+               block's shared memory (d <= max_d(C));
+    "cluster"  past that, up to cluster_max_d(), for a (d,) model
+               (C = 1): the same single read on a thread-block cluster
+               (csrc/coded_gradient_cluster.cuh), each CTA holding a
+               column slice of the rows and z summed across the cluster;
+    "wide"     past both: Z = X~ W~ on modmatmul's row-dot kernel (A's
+               K-stride 1, N = C <= 16), ghat(Z) on poly_eval, X~^T ghat(Z)
+               on its column-sum kernel (the transposed view, M-stride 1)
+               -- the tiled kernel for C > 16 -- each exact mod p, so the
+               bits equal the body's; the fused step then runs its
+               epilogue on f.  It reads X~ twice.
+
+    Every route is exact mod p, so all three give the same bits.  C > 1
+    stays on the wide route: on an H100 (NVIDIA H100 80GB HBM3, 700 W,
+    chip_smoke.py phase 14) a cluster kernel with C classes took 26.44
+    device ms at (50, 156, 65,536), C = 10, against the wide route's 4.32
+    (PERF.md section 6), so the cluster kernel takes C = 1 only."""
+    if d <= max_d(c):
+        return "body"
+    if c == 1 and d <= cluster_max_d():
+        return "cluster"
+    return "wide"
 
 
 def pass1_terms(d: int) -> int:
@@ -417,6 +477,144 @@ def slice_copy(base: int, start: int, nbytes: int, total: int) -> dict:
     return dict(lead=a_s - g0, body_lo=lo, body_bytes=hi - lo,
                 head_words=max(0, lo - a_s) // 4,
                 tail_words=max(0, a_e - hi) // 4)
+
+
+# ------------------------------------------------- the cluster gradient
+
+def slot_bytes(cw: int) -> int:
+    """One row segment of cw words in a cluster ring stage, rounded out to
+    16-byte ends (a row starts only 4-byte aligned at odd d)."""
+    return _ceil16(4 * cw) + COPY_SLACK
+
+
+def cluster_smem(k: int, bm: int, stages: int, cw: int,
+                 part_smem: bool) -> int:
+    """Dynamic shared memory of the cluster gradient kernel's layout
+    (csrc/coded_gradient_cluster.cuh): its mbarriers, the ring of bm row
+    segments a stage, two w~ segments, z partials of every warp, ghat(z),
+    the k ranks' z partials twice (slice parity), and in the "smem" mode
+    the (cw,) partials."""
+    return (CLUSTER_BAR_BYTES + (stages * bm + 2) * slot_bytes(cw)
+            + 4 * bm * GRAD_WARPS + 4 * bm + 2 * 4 * k * bm
+            + (4 * cw if part_smem else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(m: int, d: int, c: int = 1, k: int | None = None) -> dict:
+    """How the cluster gradient kernel runs f[n] = X~[n]^T ghat(X~[n] w~[n])
+    for a (d,) model (C = 1) past max_d(1): a cluster of k CTAs shares
+    every row of X~, rank r holding columns [r cw, min(d, (r+1) cw)).
+
+    k      CTAs a cluster: of CLUSTER_SIZES (CLUSTER_NONPORTABLE needs
+           cudaFuncAttributeNonPortableClusterSizeAllowed), the one whose
+           plan keeps three stages and brings the most of X~ a slice (bm x
+           cw words a CTA), the smaller on a tie; or `k` when given;
+    cw     columns a rank owns: ceil(d / k) rounded up to 4 words, so a
+           rank's segment keeps its row's 16-byte alignment;
+    mode   "reg" (a thread's raw uint64 sums of its ept columns in
+           registers) or "smem" (reduced uint32 partials of cw columns);
+    ept    register partials a thread keeps ("reg"; 0 otherwise);
+    stages ring depth: 3 (slice t + 1 resident for pass 1 while slice t
+           runs pass 2, t + 2 in flight), or 2 where three do not fit;
+    bm     rows a slice: the most `stages` stages hold, at most MAX_BM;
+    slot   one row segment's bytes in a stage (slot_bytes(cw));
+    smem   dynamic shared memory bytes.
+    Raises for C > 1 (the wide route's: on an H100 the cluster kernel ran
+    6x slower than it at C = 10, PERF.md) and where no cluster size fits."""
+    if c != 1:
+        raise ValueError(f"cluster gradient: C = 1 only, got C={c}")
+    best = None
+    for kk in ((k,) if k else CLUSTER_SIZES):
+        cw = -(-(-(-d // kk)) // 4) * 4
+        if d - (kk - 1) * cw < 1:
+            continue                           # a rank without columns
+        reg = next((e for e in REG_EPT if -(-cw // GRAD_THREADS) <= e), 0)
+        mode = "reg" if reg else "smem"
+        for stages in (3, 2):
+            fits = [bm for bm in range(max(1, min(MAX_BM, m)), 0, -1)
+                    if cluster_smem(kk, bm, stages, cw, mode == "smem")
+                    + GRAD_STATIC <= SMEM_MAX]
+            if fits:
+                bm = fits[0]
+                pl = dict(k=kk, cw=cw, mode=mode, ept=reg, bm=bm,
+                          stages=stages, slot=slot_bytes(cw),
+                          smem=cluster_smem(kk, bm, stages, cw,
+                                            mode == "smem"))
+                score = (stages, bm * cw)
+                if best is None or score > best[0]:
+                    best = (score, pl)
+                break
+    if best is None:
+        raise ValueError(f"cluster gradient: d={d} does not fit a column "
+                         f"slice of X~ in a cluster's shared memory")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_max_d() -> int:
+    """The widest d the cluster gradient kernel takes (its reach), found
+    as max_d finds the body's."""
+    lo, hi = 1, 1 << 22
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        try:
+            cluster_plan(1, mid)
+            lo = mid
+        except ValueError:
+            hi = mid - 1
+    return lo
+
+
+def cluster_model(x, w, coeffs, plan: dict) -> tuple:
+    """numpy model of the cluster gradient kernel under `plan`
+    (cluster_plan's dict): x (N, m, d), w (N, d, 1) field values.  Rank r
+    of a cluster sums z over its own columns as the body's pass 1 does
+    (warp q takes 1/16 of the rank's columns, lane l every 32nd of them,
+    one reduce_p a lane sum, the warp's and the 16 warps' values < p
+    summed and reduced); the k ranks' partials (< p each, < k p in all)
+    are summed and reduced, ghat is evaluated canonically (field.cuh
+    horner), and each rank adds X~^T ghat over its columns: per slice of
+    bm rows a sum of at most bm products, reduced with reduce_p58 ("smem")
+    or kept raw in uint64 for a whole client ("reg", at most m < 4096
+    rows).  Returns (f (N, d, 1) uint64 < p, the largest pass-1 lane sum,
+    the largest cross-rank sum) as (array, int, int)."""
+    x = np.asarray(x, dtype=np.uint64)
+    w = np.asarray(w, dtype=np.uint64)
+    n, m, d = x.shape
+    c = w.shape[2]
+    k, cw, bm = plan["k"], plan["cw"], plan["bm"]
+    pp = np.uint64(P)
+    zr, top1 = [], 0
+    for r in range(k):
+        seg = slice(r * cw, min(d, (r + 1) * cw))
+        xs, ws = x[:, :, seg], w[:, seg]
+        wr = xs.shape[2]
+        dq = -(-wr // GRAD_WARPS)
+        warps = np.zeros((n, m, c), np.uint64)
+        for q in range(GRAD_WARPS):
+            lanes = np.zeros_like(warps)
+            for lane in range(32):
+                cols = np.arange(q * dq + lane, min(wr, (q + 1) * dq), 32)
+                sums = xs[:, :, cols] @ ws[:, cols]       # exact below 2^64
+                top1 = max(top1, int(sums.max(initial=0)))
+                lanes += reduce_p(sums)
+            warps += reduce_p(lanes)
+        zr.append(reduce_p(warps))
+    zsum = np.sum(zr, axis=0, dtype=np.uint64)
+    top2 = int(zsum.max())
+    z = reduce_p(zsum)
+    g = np.full(z.shape, np.uint64(int(coeffs[-1])), np.uint64)
+    for co in reversed([int(v) for v in coeffs[:-1]]):
+        g = (g * z % pp + np.uint64(co)) % pp            # canonical Horner
+    f = np.zeros((n, d, c), np.uint64)
+    xt = np.swapaxes(x, 1, 2)                            # (N, d, m)
+    if plan["mode"] == "reg":
+        assert m < NO_REDUCE_TERMS
+        return reduce_p(xt @ g), top1, top2
+    for r0 in range(0, m, bm):
+        sums = xt[:, :, r0:r0 + bm] @ g[:, r0:r0 + bm]    # bm products
+        f = (f + reduce_p58(sums)) % pp
+    return f, top1, top2
 
 
 # ---------------------------------------------------------------- poly_eval

@@ -159,7 +159,8 @@ def _chip_smoke():
 
 def test_compare_shapes_route_as_stated():
     """chip_smoke.COMPARE_SHAPES, the shapes `--compare` times: the copml
-    GEMMs keep their paths, Z = X W is rowdot and serving is splitk."""
+    GEMMs keep their paths, Z = X W and a sharded rank's scores are
+    rowdot and serving is splitk."""
     smoke, seen = _chip_smoke(), {}
 
     def empty(*shape):
@@ -174,7 +175,7 @@ def test_compare_shapes_route_as_stated():
     for label, path in seen.items():
         if label.startswith("X^T y"):
             assert path == "colsum", label
-        elif label.startswith("MPC baseline Z"):
+        elif label.startswith(("MPC baseline Z", "sharded rank scores")):
             assert path == "rowdot", label
         elif label.startswith("serving"):
             assert path == "splitk", label

@@ -369,10 +369,13 @@ def test_refused_launches_raise(cuda):
     out = torch.empty((1, 4, 3), dtype=torch.int32, device=cuda)
     with pytest.raises(RuntimeError, match="rowdot"):       # kch > K
         mm.rowdot(a, y, out, dict(cmax=4, kch=301, run=4, cpb=1,
-                                  smem=4 * 4 * 301))
+                                  smem=4 * 4 * 301, splits=1, ks=300))
     with pytest.raises(RuntimeError, match="rowdot"):       # strips short
         mm.rowdot(a, y, out, dict(cmax=4, kch=300, run=1, cpb=1,
-                                  smem=4 * 4 * 300))
+                                  smem=4 * 4 * 300, splits=1, ks=300))
+    with pytest.raises(RuntimeError, match="rowdot"):       # splits short
+        mm.rowdot(a, y, out, dict(cmax=4, kch=96, run=4, cpb=1,
+                                  smem=4 * 4 * 96, splits=3, ks=96))
     with pytest.raises(RuntimeError, match="splitk"):       # splits short
         mm.splitk(a, y, out, dict(bn=32, rg=4, gx=1, kc=64, splits=2))
     with pytest.raises(RuntimeError, match="splitk"):       # kc past 4096

@@ -506,23 +506,27 @@ def test_gemm_path_order(m, k, n, a_st, b_col, want):
 def test_rowdot_launch_covers_m_and_k(m, n, k, batch, slots):
     launch = plan.rowdot_launch(m, n, k, batch, slots)
     kch, run, cpb = launch["kch"], launch["run"], launch["cpb"]
+    ks, splits = launch["ks"], launch["splits"]
     assert launch["cmax"] == next(c for c in plan.ROWDOT_CMAX if n <= c)
-    assert 1 <= kch <= k and -(-kch // 32) <= plan.NO_REDUCE_TERMS
+    assert 1 <= kch <= ks <= k and -(-kch // 32) <= plan.NO_REDUCE_TERMS
     assert launch["smem"] == 4 * launch["cmax"] * kch <= plan.SMEM_MAX
-    # csrc/modmatmul.cu repro_modmatmul_rowdot's checks of the strips
+    # csrc/modmatmul.cu repro_modmatmul_rowdot's checks of the strips and
+    # of the splits of K
     assert run * cpb >= m > run * (cpb - 1)
-    assert cpb * batch <= max(slots, batch)       # one wave when it can
-    if k * launch["cmax"] * 4 <= plan.SMEM_MAX:
-        assert kch == k                           # B staged once a CTA
+    assert splits * ks >= k > (splits - 1) * ks
+    assert splits == 1 or ks % 32 == 0
+    assert cpb * batch * splits <= max(slots, batch)   # one wave when it can
+    if ks * launch["cmax"] * 4 <= plan.SMEM_MAX:
+        assert kch == ks                       # a split's B staged once a CTA
 
 
 def test_rowdot_launch_at_the_baselines_z():
     """Z = X W at cifar10_case2: B staged whole (12 KB at C' = 1, 123 KB at
     10), the resident CTAs dealt evenly over the 16 groups."""
     assert plan.rowdot_launch(3006, 1, D, 16, 264) == dict(
-        cmax=1, kch=D, smem=4 * D, run=188, cpb=16)
+        cmax=1, kch=D, smem=4 * D, run=188, cpb=16, splits=1, ks=D)
     assert plan.rowdot_launch(3006, 10, D, 16, 132) == dict(
-        cmax=10, kch=D, smem=40 * D, run=376, cpb=8)
+        cmax=10, kch=D, smem=40 * D, run=376, cpb=8, splits=1, ks=D)
     for n, k in ((17, 100), (0, 100), (1, 0)):
         with pytest.raises(ValueError):
             plan.rowdot_shape(n, k)
@@ -580,6 +584,92 @@ def test_rowdot_model_at_p_minus_1(k, n):
     assert top == -(-kch // 32) * (P - 1) ** 2 < 1 << 64
     want = ref.modmatmul_batched(torch.from_numpy(a), torch.from_numpy(y))
     np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("b", [1, 32, 128])
+def test_rowdot_splits_k_at_a_ranks_serving_scores(b):
+    """A sharded:4 rank's scores (B, 3073) @ (3073, 13): too few rows to
+    fill the card, so K is cut over CTAs (one CTA walked all of K at
+    B = 1) into splits of a multiple of 32 rows, the strips kept whole
+    warps' worth of rows; the split model equals a numpy mod-p product,
+    also at x = y = p - 1."""
+    slots = 132                     # cmax 16 stages all of B: 1 CTA an SM
+    launch = plan.rowdot_launch(b, 13, D, 1, slots)
+    assert launch["splits"] > 1 and launch["ks"] % 32 == 0
+    assert launch["run"] >= min(b, plan.rowdot_rows(16))
+    assert launch["cpb"] * launch["splits"] <= slots
+    rng = np.random.default_rng(b)
+    for worst in (False, True):
+        a = rng.integers(0, P, size=(1, b, D), dtype=np.int64)
+        y = rng.integers(0, P, size=(1, D, 13), dtype=np.int64)
+        if worst:
+            a[:], y[:] = P - 1, P - 1
+        got, top = plan.rowdot_model(a, y, launch["kch"], launch["ks"])
+        assert top < 1 << 64
+        want = np.zeros((1, b, 13), np.int64)
+        for k0 in range(0, D, 512):       # exact: 512 products < 2^63
+            want = (want + a[:, :, k0:k0 + 512] @ y[:, k0:k0 + 512]) % P
+        np.testing.assert_array_equal(got.astype(np.int64), want)
+
+
+def test_rowdot_keeps_one_split_where_rows_fill_the_card():
+    """The MPC baseline's Z and the wide route's Z fill the card with
+    rows: one split, as before K could be split."""
+    for m, n, k, batch, slots in ((3006, 1, D, 16, 264),
+                                  (3006, 10, D, 16, 132),
+                                  (156, 10, 65536, 50, 132),
+                                  (156, 1, 65536, 50, 132)):
+        launch = plan.rowdot_launch(m, n, k, batch, slots)
+        assert launch["splits"] == 1 and launch["ks"] == k
+
+
+@pytest.mark.parametrize("m,d,k", [
+    (156, 58005, None), (156, 65536, None), (1, 65536, None),
+    (5, 65536, None), (156, 131072, None), (2, 180000, None),
+    (1, plan.cluster_max_d(), None), (4095, 70001, None),
+    (156, 65536, 8), (156, 58005, 16)])
+def test_cluster_plan_limits(m, d, k):
+    """The cluster kernel's plan fits a block's shared memory, gives each
+    rank a 4-word multiple of columns (every rank some), keeps pass 1's
+    lane sums below NO_REDUCE_TERMS products and the k ranks' sum of
+    partials below 2^32, and its register mode holds the rank's columns."""
+    pl = plan.cluster_plan(m, d, 1, k)
+    k, cw, bm = pl["k"], pl["cw"], pl["bm"]
+    assert k in plan.CLUSTER_SIZES
+    assert cw % 4 == 0 and cw * k >= d > cw * (k - 1)
+    assert pl["smem"] + plan.GRAD_STATIC <= plan.SMEM_MAX
+    assert pl["smem"] == plan.cluster_smem(k, bm, pl["stages"], cw,
+                                           pl["mode"] == "smem")
+    assert pl["stages"] in (2, 3)
+    assert pl["slot"] % 16 == 0 and pl["slot"] >= 4 * cw + plan.COPY_SLACK
+    assert 1 <= bm <= min(m, plan.MAX_BM)
+    assert plan.pass1_terms(cw) < plan.NO_REDUCE_TERMS
+    assert k * (P - 1) < 1 << 32
+    if pl["mode"] == "reg":
+        assert pl["ept"] * plan.GRAD_THREADS >= cw
+    else:
+        assert pl["mode"] == "smem" and pl["ept"] == 0
+
+
+def test_cluster_plan_at_the_wide_cell():
+    """(50, 156, 65,536): 16 CTAs of 4,096 columns, register partials,
+    three stages of 4 rows (64 KB a CTA a slice); C > 1 is refused."""
+    assert plan.cluster_plan(156, 65536, 1) == dict(
+        k=16, cw=4096, mode="reg", ept=8, bm=4, stages=3, slot=16416,
+        smem=230736)
+    for c in (2, 10):
+        with pytest.raises(ValueError, match="C = 1 only"):
+            plan.cluster_plan(156, 65536, c)
+
+
+def test_cluster_reach_lies_past_the_body():
+    """The cluster kernel starts where the body stops and reaches past
+    2^17 columns of hashed features; one column more raises."""
+    reach = plan.cluster_max_d()
+    assert plan.max_d(1) < 131072 < reach
+    plan.cluster_plan(1, reach)
+    with pytest.raises(ValueError, match="column slice"):
+        plan.cluster_plan(1, reach + 1)
 
 
 @pytest.mark.parametrize("b,k", [(1, D), (128, D), (3, 9019)])
