@@ -1,0 +1,9 @@
+"""idle_share.serve: the share of the traced stretch of serving in which no
+operation ran on the device (1 - union of device operations over the
+traced window), in percent."""
+
+from yardstick import readings
+
+
+def read(ctx):
+    return readings.idle_pct(ctx)
