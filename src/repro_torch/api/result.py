@@ -56,6 +56,14 @@ class TrainResult:
                    the paper does not price (float, poly_float, secure_agg)
     timings        setup_s and iters_s: wall seconds of the setup and of the
                    iteration loop (each ending in a device synchronise);
+                   a copml run on the eager or jit engine adds spans: its
+                   repro_torch.obs spans, path -> [count, host seconds]
+                   (perf_counter, no synchronise, so a phase that launches
+                   kernels counts their launch), for setup.rows,
+                   setup.share, setup.lcc and train.step (step.encode,
+                   .masks, .open), with each random.threefry draw under
+                   the phase that made it, e.g.
+                   "train.step/step.masks/random.threefry";
                    a sharded run adds ranks: each rank's device, backend,
                    kernel launches by name and by GEMM path, peak device
                    memory, bytes sent by collective and loop seconds

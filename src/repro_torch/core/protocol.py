@@ -33,6 +33,7 @@ bit-identical to the JAX package's on the same key.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -43,6 +44,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels import ops
 from . import (field, lagrange, meshutil, mpc, objectives, quantize, shamir,
                truncation)
@@ -227,15 +229,18 @@ class Copml:
         keys = jrandom.split(key, 6)
 
         # Phase 1 (LOCAL): quantize into F_p
-        xq = quantize.quantize(np.concatenate(
-            [np.asarray(x) for x in client_xs], axis=0), cfg.lx, dev)
-        targets = self.obj.prepare_targets(
-            np.concatenate([np.asarray(y) for y in client_ys], axis=0))
-        yq = quantize.quantize(np.asarray(targets, np.float32), cfg.lg, dev)
+        with obs.span("setup.rows"):
+            xq = quantize.quantize(np.concatenate(
+                [np.asarray(x) for x in client_xs], axis=0), cfg.lx, dev)
+            targets = self.obj.prepare_targets(
+                np.concatenate([np.asarray(y) for y in client_ys], axis=0))
+            yq = quantize.quantize(np.asarray(targets, np.float32), cfg.lg,
+                                   dev)
 
         # Phase 2a (EXCHANGE): Shamir-share every client's data
-        x_shares = shamir.share(keys[0], xq, cfg.t, n, self.lambdas)
-        y_shares = shamir.share(keys[1], yq, cfg.t, n, self.lambdas)
+        with obs.span("setup.share"):
+            x_shares = shamir.share(keys[0], xq, cfg.t, n, self.lambdas)
+            y_shares = shamir.share(keys[1], yq, cfg.t, n, self.lambdas)
         del xq
 
         # Phase 2b/c: partition rows into K blocks, add T masks, LCC-encode,
@@ -243,21 +248,22 @@ class Copml:
         # the first T+1 holders, so only their encodings are formed, one
         # holder at a time (the values are those of the all-holder
         # encoding, at 8/50 of its memory for the paper's case 2).
-        per = -(-x_shares.shape[1] // cfg.k)
-        holders = cfg.t + 1
-        z = field.random_field(keys[2], (cfg.t, per, self.d), dev)
-        z_shares = shamir.share(keys[3], z, cfg.t, n, self.lambdas,
-                                holders=holders)          # (T+1, T, mk, d)
-        del z
-        enc = torch.empty((holders, n, per, self.d), dtype=torch.int32,
-                          device=dev)
-        for h in range(holders):
-            blocks, _ = lagrange.partition_rows(x_shares[h], cfg.k)
-            enc[h] = lagrange.lcc_encode(blocks, z_shares[h], self.alphas,
-                                         self.betas)
-        del blocks, z_shares
-        coded_x = shamir.reconstruct(enc, cfg.t, self.lambdas)  # (N, mk, d)
-        del enc
+        with obs.span("setup.lcc"):
+            per = -(-x_shares.shape[1] // cfg.k)
+            holders = cfg.t + 1
+            z = field.random_field(keys[2], (cfg.t, per, self.d), dev)
+            z_shares = shamir.share(keys[3], z, cfg.t, n, self.lambdas,
+                                    holders=holders)      # (T+1, T, mk, d)
+            del z
+            enc = torch.empty((holders, n, per, self.d), dtype=torch.int32,
+                              device=dev)
+            for h in range(holders):
+                blocks, _ = lagrange.partition_rows(x_shares[h], cfg.k)
+                enc[h] = lagrange.lcc_encode(blocks, z_shares[h],
+                                             self.alphas, self.betas)
+            del blocks, z_shares
+            coded_x = shamir.reconstruct(enc, cfg.t, self.lambdas)
+            del enc                                       # coded_x (N, mk, d)
 
         # Phase 2d: X^T y via one secure matmul; a matrix objective
         # contracts against all C target columns at once
@@ -386,16 +392,16 @@ class Copml:
         adv_off = self._zeros_n if adv is None else \
             torch.where(adv, ADV_OFFSET, self._zeros_n)
 
-        mix = shamir.share(
-            kf, torch.zeros((n,) + self.w_shape, dtype=field.FIELD_DTYPE,
-                            device=dev), cfg.t, n, self.lambdas)
-        base = ops.modmatmul_batched(
-            dfull[None, None].expand(n, 1, n), mix.view(n, n, self.dw))
-
-        r_sh, r0_sh = truncation.trunc_pr_randomness(
-            kt, self.w_shape, self.k1, self.k2,
-            lambda k, s: shamir.share(k, s, cfg.t, n, self.lambdas), dev)
-        radd = field.add(r_sh, torch.full_like(r_sh, 1 << (self.k2 - 1)))
+        with obs.span("step.masks"):
+            mix = shamir.share(
+                kf, torch.zeros((n,) + self.w_shape, dtype=field.FIELD_DTYPE,
+                                device=dev), cfg.t, n, self.lambdas)
+            base = ops.modmatmul_batched(
+                dfull[None, None].expand(n, 1, n), mix.view(n, n, self.dw))
+            r_sh, r0_sh = truncation.trunc_pr_randomness(
+                kt, self.w_shape, self.k1, self.k2,
+                lambda k, s: shamir.share(k, s, cfg.t, n, self.lambdas), dev)
+            radd = field.add(r_sh, torch.full_like(r_sh, 1 << (self.k2 - 1)))
 
         mat = (n, self.d, self.obj.n_outputs)
         _, new_w = ops.fused_step(
@@ -412,7 +418,8 @@ class Copml:
                   subset: Sequence[int] | None = None, *,
                   subset_idx=None, dvec=None, adv=None) -> CopmlState:
         k1_, k2_ = jrandom.split(key)
-        coded_w = self.encode_model(k1_, state.w_shares)
+        with obs.span("step.encode"):
+            coded_w = self.encode_model(k1_, state.w_shares)
         if self.fused_mode != "0":
             return self._fused_iteration(k2_, state, coded_w, subset,
                                          subset_idx=subset_idx, dvec=dvec,
@@ -474,34 +481,40 @@ class Copml:
         subsets and an (iters, N) corruption mask, compiled once into
         device tensors before the setup.  `timings`, when given, receives
         setup_s and iters_s: wall seconds of the setup and of the iteration
-        loop, each ending in a device synchronise.  `callback(t, w)`, when
-        given, receives the opened model after step t.  Returns (state, w,
-        history (iters,) + w_shape or None)."""
+        loop, each ending in a device synchronise; and spans: the run's
+        obs spans (setup.*, train.step and the phases inside it), path ->
+        [count, host seconds].  `callback(t, w)`, when given, receives the
+        opened model after step t.  Returns (state, w, history (iters,) +
+        w_shape or None)."""
         subset = None if subset is None else tuple(subset)
         iters = int(iters)
         faults = self._fault_xs(step_subsets, adversaries, iters, subset)
-        t0 = self._sync()
-        ks, ki = jrandom.split(jrandom.as_key(key))
-        state = self.setup(ks, client_xs, client_ys)
-        t1 = self._sync()
-        hist = []
-        for t in range(iters):
-            kw = {}
-            if faults is not None:
-                idx, dvs, adv = faults
-                kw = dict(subset_idx=idx[t], dvec=dvs[t],
-                          adv=None if adv is None else adv[t])
-            state = self.iteration(jrandom.fold_in(ki, t), state, subset,
-                                   **kw)
-            if history or callback is not None:
-                w_t = self.open_model(state)
-                if history:
-                    hist.append(w_t)
-                if callback is not None:
-                    callback(t, w_t)
-        t2 = self._sync()
+        rec = obs.Recorder()
+        with rec if timings is not None else contextlib.nullcontext():
+            t0 = self._sync()
+            ks, ki = jrandom.split(jrandom.as_key(key))
+            state = self.setup(ks, client_xs, client_ys)
+            t1 = self._sync()
+            hist = []
+            for t in range(iters):
+                with obs.span("train.step"):
+                    kw = {}
+                    if faults is not None:
+                        idx, dvs, adv = faults
+                        kw = dict(subset_idx=idx[t], dvec=dvs[t],
+                                  adv=None if adv is None else adv[t])
+                    state = self.iteration(jrandom.fold_in(ki, t), state,
+                                           subset, **kw)
+                    if history or callback is not None:
+                        with obs.span("step.open"):
+                            w_t = self.open_model(state)
+                        if history:
+                            hist.append(w_t)
+                        if callback is not None:
+                            callback(t, w_t)
+            t2 = self._sync()
         if timings is not None:
-            timings.update(setup_s=t1 - t0, iters_s=t2 - t1)
+            timings.update(setup_s=t1 - t0, iters_s=t2 - t1, spans=rec.spans)
         w = self.open_model(state)
         if not history:
             return state, w, None

@@ -25,6 +25,7 @@ halves: counter pair q = (q, q + h), h = ceil(n / 2), gives output words q
 and h + q; an odd n pads the second half with one counter 0 whose output is
 dropped.  `randint` walks the pairs in chunks so that a (7, 9019, 3073)
 draw never materialises more than a few chunk-sized int64 temporaries.
+Each bulk draw (`_draw`, `bits32`) is one `obs` span, `random.threefry`.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ import math
 
 import numpy as np
 import torch
+
+from .. import obs
 
 M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -166,27 +169,28 @@ def _draw(hi_key, lo_key, n: int, minval: int, maxval: int, device,
     mult = (1 << 16) % span
     mult = ((mult * mult) & M32) % span
     lead = () if rows is None else (rows,)
-    out = torch.empty(lead + (n,), dtype=torch.int32, device=device)
-    h = (n + 1) // 2
-    chunk = max(1, _CHUNK // (rows or 1))
-    for qs in range(0, h, chunk):
-        qe = min(h, qs + chunk)
-        c0 = torch.arange(qs, qe, dtype=torch.int64, device=device)
-        c1 = c0 + h
-        if n % 2 and qe == h:
-            c1[-1] = 0                    # the odd count's zero pad
-        lo = threefry2x32(*lo_key, c0, c1)
-        offs = [w % span for w in lo]
-        if mult:
-            hi = threefry2x32(*hi_key, c0, c1)
-            offs = [((((hw % span) * mult) & M32) + o) & M32
-                    for hw, o in zip(hi, offs)]
-            offs = [o % span for o in offs]
-        out[..., qs:qe] = (offs[0] + minval).to(torch.int32)
-        tail = min(qe, n - h) - qs        # second-half words inside [0, n)
-        if tail > 0:
-            out[..., h + qs:h + qs + tail] = (offs[1][..., :tail]
-                                              + minval).to(torch.int32)
+    with obs.span("random.threefry"):
+        out = torch.empty(lead + (n,), dtype=torch.int32, device=device)
+        h = (n + 1) // 2
+        chunk = max(1, _CHUNK // (rows or 1))
+        for qs in range(0, h, chunk):
+            qe = min(h, qs + chunk)
+            c0 = torch.arange(qs, qe, dtype=torch.int64, device=device)
+            c1 = c0 + h
+            if n % 2 and qe == h:
+                c1[-1] = 0                # the odd count's zero pad
+            lo = threefry2x32(*lo_key, c0, c1)
+            offs = [w % span for w in lo]
+            if mult:
+                hi = threefry2x32(*hi_key, c0, c1)
+                offs = [((((hw % span) * mult) & M32) + o) & M32
+                        for hw, o in zip(hi, offs)]
+                offs = [o % span for o in offs]
+            out[..., qs:qe] = (offs[0] + minval).to(torch.int32)
+            tail = min(qe, n - h) - qs    # second-half words inside [0, n)
+            if tail > 0:
+                out[..., h + qs:h + qs + tail] = (offs[1][..., :tail]
+                                                  + minval).to(torch.int32)
     return out
 
 
@@ -196,12 +200,13 @@ def bits32(key, shape, *, device="cpu") -> torch.Tensor:
     k0, k1 = _words(key)
     n = math.prod(shape)
     h = (n + 1) // 2
-    c0 = torch.arange(h, dtype=torch.int64, device=device)
-    c1 = c0 + h
-    if n % 2:
-        c1[-1] = 0                        # the odd count's zero pad
-    w0, w1 = threefry2x32(k0, k1, c0, c1)
-    return torch.cat([w0, w1])[:n].reshape(shape)
+    with obs.span("random.threefry"):
+        c0 = torch.arange(h, dtype=torch.int64, device=device)
+        c1 = c0 + h
+        if n % 2:
+            c1[-1] = 0                    # the odd count's zero pad
+        w0, w1 = threefry2x32(k0, k1, c0, c1)
+        return torch.cat([w0, w1])[:n].reshape(shape)
 
 
 def bits(key, shape, width: int = 32, *, device="cpu") -> torch.Tensor:

@@ -42,6 +42,7 @@ import weakref
 import numpy as np
 import torch
 
+from .. import obs
 from ..core import field, meshutil, quantize, shamir
 from ..core.baselines import sync_clock, to_device
 from ..core.labels import Opened, Public, Share
@@ -131,10 +132,12 @@ def encode_model(key, result, cfg, objective, device=None) -> CodedModel:
 
 def quantize_queries(model: CodedModel, queries) -> Public:
     """Float query batch (B, d) -> field domain at the data scale lx, on
-    the model's device."""
-    x = to_device(queries, torch.float32, model.device)
-    assert x.dim() == 2 and x.shape[1] == model.d, (tuple(x.shape), model.d)
-    return quantize.quantize(x, model.lx)
+    the model's device (span `serve.quantize`)."""
+    with obs.span("serve.quantize"):
+        x = to_device(queries, torch.float32, model.device)
+        assert x.dim() == 2 and x.shape[1] == model.d, (tuple(x.shape),
+                                                         model.d)
+        return quantize.quantize(x, model.lx)
 
 
 def score_shares(model: CodedModel, xq: Public) -> Share:

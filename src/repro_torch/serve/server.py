@@ -25,6 +25,7 @@ import time
 
 import numpy as np
 
+from .. import obs
 from ..core import quantize
 from . import coded
 from .queue import MicroBatchQueue
@@ -86,9 +87,12 @@ class SecureServer:
         return self._score(queries).cpu().numpy()
 
     def logits(self, queries) -> np.ndarray:
-        """Dequantized float logits (B, C')."""
-        return quantize.dequantize(self._score(queries),
-                                   self.model.lz).cpu().numpy()
+        """Dequantized float logits (B, C'), brought to the host (span
+        `serve.fetch`: the dequantize and the copy that waits for the
+        window's kernels)."""
+        z = self._score(queries)
+        with obs.span("serve.fetch"):
+            return quantize.dequantize(z, self.model.lz).cpu().numpy()
 
     def predict(self, queries) -> np.ndarray:
         """Per-query decisions on an un-queued batch (see _decide)."""
