@@ -198,9 +198,30 @@ Phases (a failed phase fails the run; no failure is caught):
               a sharded rank's score GEMM, K split over CTAs on rowdot, at
               batch 1, 32 and 128 against its times before the split
 
+ 15. threefry the threefry kernel (csrc/threefry.cu, one launch a draw;
+              replaces no TPU kernel: the JAX package draws with
+              jax.random) against core/random.py's plain int64 version,
+              bit for bit, one launch a draw by ops.threefry_counts: the
+              six draws of a cifar10_case2 step, set-up's (7, 9019, 3073)
+              (against the plain version on the card), odd sizes, a span
+              whose uint32 multiplier is nonzero, negative minval, rows
+              of 3 and 70 keys, bits32 at odd sizes; timed at 194M and
+              1.08M words (CUDA events, device time, the plain version on
+              the card, the bound), and a step's six draws on the host
+              clock, kernel against plain; the built kernel's opcodes by
+              cuobjdump (the floor's premise, kernels/threefry.py
+              ALU_OPS_PAIR).  Its kernels-line entry counts the launches
+              of phase 4's fit (every draw of set-up and of each step),
+              and by path the protocol, serving, proc, sharded, wide and
+              launch_counter runs' (ops.threefry_counts: the caller's plus
+              every worker's or rank's).  --threefry-only runs it alone
+              into chiprun_out/chip_smoke_threefry.json, its entry
+              counting a step's six draws
+
 Output: one {"kernels": [...]} JSON line (the seven TPU kernels' ports,
 then the row-dot and split-K paths of modmatmul, the wide route's four
-kernels and the cluster gradient kernel as entries of their own,
+kernels and the cluster gradient kernel as entries of their own, and last
+the threefry kernel (no TPU counterpart; not in --quick),
 each with its launches on the full-width path that runs it and its times
 at that path's shape (asserted), its launches by path -- the proc:4 runs' summed over the coordinator and the workers --
 and its time at a proc worker's shape where it runs there), the card's
@@ -216,6 +237,7 @@ the ptxas report, a profile of two steps) go to chip_smoke.json in OUT_DIR.
   python3 chip_smoke.py --lm-only       # build, then phase 12 alone
   python3 chip_smoke.py --lm-train-only # build, then phase 13 alone
   python3 chip_smoke.py --wide-only     # build, then phase 14 alone
+  python3 chip_smoke.py --threefry-only # build, then phase 15 alone
   python3 chip_smoke.py --compare OTHER/src   # the redesigned kernels of
       # another checkout (e.g. the parent commit's) and of this one, timed
       # in turns other, this, this, other; writes chiprun_out/compare.json
@@ -436,13 +458,15 @@ def log(*args):
 
 def run_counts() -> dict:
     """The launch counts since the last ops.reset_launches(): each kernel's,
-    the field GEMM's by path under "gemm:<path>", and the cluster route's
+    the field GEMM's by path under "gemm:<path>", the cluster route's
     gradients, the wide route's gradients and its epilogues under
-    "wide:cluster", "wide:gradient" and "wide:epilogue"."""
+    "wide:cluster", "wide:gradient" and "wide:epilogue", and the threefry
+    kernel's launches (every entry) under "threefry"."""
     from repro_torch.kernels import ops
     counts = ops.launch_counts()
     counts.update({f"gemm:{p}": c for p, c in ops.gemm_path_counts().items()})
     counts.update({f"wide:{s}": c for s, c in ops.wide_counts().items()})
+    counts["threefry"] = sum(ops.threefry_counts().values())
     return counts
 
 
@@ -508,8 +532,8 @@ class Checker:
         self.rng = np.random.default_rng(0)
         self.gen = torch.Generator(device="cuda")
         self.gen.manual_seed(0)
-        self.max_err = {k: 0 for k in TPU_KERNEL}
-        self.checks = {k: 0 for k in TPU_KERNEL}
+        self.max_err = {k: 0 for k in (*TPU_KERNEL, "threefry")}
+        self.checks = {k: 0 for k in (*TPU_KERNEL, "threefry")}
         self.rows: list = []
 
     def field(self, *shape):
@@ -1679,6 +1703,7 @@ def proc_counts(coord: dict, mc: dict) -> dict:
             total[f"gemm:{path}"] += c
         for step, c in rec["wide"].items():
             total[f"wide:{step}"] += c
+        total["threefry"] += sum(rec["threefry"].values())
     return total
 
 
@@ -1855,6 +1880,7 @@ def sharded_counts(coord: dict, ranks: list) -> dict:
             total[f"gemm:{path}"] += c
         for step, c in rec["wide"].items():
             total[f"wide:{step}"] += c
+        total["threefry"] += sum(rec["threefry"].values())
     return total
 
 
@@ -2176,6 +2202,8 @@ def phase_launch(ck: Checker, np) -> tuple:
         assert counts[name] > 0, f"{name} was not launched by the steps"
         assert counts[name] == cnt["launches"][name] * 2, (name, counts,
                                                             cnt["launches"])
+    # a step's six draws, one threefry launch each
+    assert counts["threefry"] == 6 * counts["fused_step"], counts
     samples = {"count_steps": [cnt], "profile_steps": []}
     for i in range(2 * IDLE_SAMPLES - 1):      # prof, cnt, cnt, prof, ...
         which = "profile_steps" if i % 4 in (0, 3) else "count_steps"
@@ -3613,6 +3641,193 @@ COMPARE_SHAPES = [
 ]
 
 
+# phase 15: the threefry kernel.  The six draws of a cifar10_case2 step
+# (T = 7, N = 50, d = 3,073: the model encode's v and its Shamir
+# coefficients, the masks' mix, TruncPr's r and the coefficients of [r] and
+# [r0]; span None: the field's p, else TruncPr's 2^k2) and set-up's
+# largest, X's Shamir coefficients
+THREEFRY_STEP = [((7, 3073), None), ((7, 7, 3073), None),
+                 ((7, 50, 3073), None), ((3073,), 1 << 25), ((7, 3073), None),
+                 ((7, 3073), None)]
+THREEFRY_SETUP = (7, 9019, 3073)
+THREEFRY_MIX = (7, 50, 3073)
+
+
+def threefry_work(n: int, bits: bool = False) -> tuple:
+    """(operations, bytes) of one draw of n words: the integer ALU pipe's
+    kernels/threefry.py ALU_OPS_PAIR a counter pair and, for randint, one
+    a word for the reduction; each word written once (4 bytes, or 8 for
+    bits32)."""
+    from repro_torch.kernels import threefry
+    pairs = (n + 1) // 2
+    ops = pairs * threefry.ALU_OPS_PAIR + (0 if bits else n)
+    return ops, n * (8 if bits else 4)
+
+
+def threefry_sass() -> dict | None:
+    """Opcodes of the built threefry kernel by instantiation (its Mode:
+    0 bits32, 1 a power-of-two span, 2 the multiply-high reduction, 3 with
+    the hi hash), from cuobjdump -sass; None where no cuobjdump is."""
+    from repro_torch.kernels import build
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / \
+        "cuobjdump"
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(build._lib_path(
+        "threefry"))], capture_output=True, text=True, check=True).stdout
+    out, mode = {}, None
+    for line in text.splitlines():
+        line = line.strip()
+        if line.startswith("Function :"):
+            mode = line.split("threefry_kernelILi")[1][0]
+            out[mode] = collections.Counter()
+        elif mode is not None and line.startswith("/*") and "*/" in line:
+            ins = line.split("*/", 1)[1].strip()
+            if ins.startswith("@"):
+                ins = ins.split(None, 1)[1]
+            op = ins.split(None, 1)[0].split(".")[0].rstrip(";") if ins \
+                else ""
+            if op.isupper():
+                out[mode][op] += 1
+    return {m: dict(c) for m, c in out.items()}
+
+
+def threefry_entry(ck: Checker, rows: dict, launches: int, path: str,
+                   by_path: dict) -> dict:
+    """The threefry kernel's kernels-line entry: its launches on `path`
+    (and by path), its comparisons, and set-up's draw timed."""
+    assert launches > 0, f"the threefry kernel was not launched on {path}"
+    r = rows["setup"]
+    return dict(
+        name="threefry", route="cuda",
+        source="src/repro_torch/kernels/csrc/threefry.cu", replaces=None,
+        launches=launches, path=path, launches_by_path=by_path,
+        max_abs_err=ck.max_err["threefry"],
+        equal=ck.max_err["threefry"] == 0, checks=ck.checks["threefry"],
+        shape=r["shape"], ms=r["ms"], device_ms=r["device_ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=None, proc_worker=None)
+
+
+def phase_threefry(ck: Checker) -> dict:
+    """Phase 15 (the module docstring); returns its details, with the
+    launches of one step's six draws under "step_six_draws_launches"."""
+    from repro_torch.core import field
+    from repro_torch.core import random as jrandom
+    from repro_torch.kernels import ops, threefry
+    torch, P = ck.torch, ck.P
+    cuda = torch.device("cuda")
+    step = [(s, P if span is None else span) for s, span in THREEFRY_STEP]
+
+    def one_launch(entry, launches=1):
+        counts = ops.threefry_counts()
+        want = {e: launches if e == entry else 0 for e in threefry.ENTRIES}
+        assert counts == want, (entry, counts)
+
+    cases = [(s, 0, span) for s, span in step] + [
+        ((7,), 0, P), ((4097,), 0, 1 << 24), ((5, 3), 0, 1000),
+        ((1001,), -(1 << 31), (1 << 31) - 1), ((9,), 3, 4)]
+    for i, (shape, lo, hi) in enumerate(cases):
+        key = jrandom.fold_in(jrandom.PRNGKey(29), i)
+        ops.reset_launches()
+        got = jrandom.randint(key, shape, lo, hi, device=cuda)
+        one_launch("randint")
+        ck.compare("threefry", got, jrandom.randint(key, shape, lo, hi),
+                   f"randint {shape} [{lo}, {hi})")
+    for k, shape, span in ((3, (7, 5), P), (3, (3, 4), 1000),
+                           (70, (1001,), P)):
+        keys = jrandom.split(jrandom.PRNGKey(5), k)
+        ops.reset_launches()
+        got = jrandom.randint_keys(keys, shape, 0, span, device=cuda)
+        one_launch("randint_keys", -(-k // threefry.MAX_ROWS))
+        ck.compare("threefry", got,
+                   jrandom.randint_keys(keys, shape, 0, span),
+                   f"randint_keys {k} x {shape} span {span}")
+    for shape in ((1,), (7,), (4097,), (3, 5)):
+        key = jrandom.PRNGKey(23)
+        ops.reset_launches()
+        got = jrandom.bits32(key, shape, device=cuda)
+        one_launch("bits32")
+        ck.compare("threefry", got, jrandom.bits32(key, shape),
+                   f"bits32 {shape}")
+
+    # set-up's draw against the plain version on the card
+    key = jrandom.fold_in(jrandom.PRNGKey(3), 1)
+    n_setup = math.prod(THREEFRY_SETUP)
+    halves = [jrandom._words(k) for k in jrandom.split(key)]
+    ops.reset_launches()
+    got = field.random_field(key, THREEFRY_SETUP, cuda)
+    one_launch("randint")
+    want = jrandom._draw_plain(*halves, n_setup, 0, P, 0, cuda, None)
+    ck.compare_on_card("threefry", got.reshape(-1), want,
+                       f"randint {THREEFRY_SETUP}")
+    del got, want
+
+    rows = {}
+    for label, shape in (("setup", THREEFRY_SETUP), ("mix", THREEFRY_MIX)):
+        n = math.prod(shape)
+        out = torch.empty(n, dtype=torch.int32, device=cuda)
+        span_ = threefry.mod_constants(P)
+
+        def kern(n=n, out=out):
+            threefry._launch(out, "randint", [*halves[1], *halves[0]],
+                             span_[0], n, P, span_[1], 0, 0)
+
+        def plain(n=n):
+            jrandom._draw_plain(*halves, n, 0, P, 0, cuda, None)
+
+        ms_ = ck.time_ms(kern, 10 if label == "setup" else 200)
+        dev_ = device_ms(torch, kern, 10 if label == "setup" else 50)
+        pl_ = ck.time_ms(plain, 2 if label == "setup" else 10)
+        work = threefry_work(n)
+        bb_, by_ = bound(work[1], work[0])
+        rows[label] = dict(shape=str(shape), words=n, ms=ms_,
+                           device_ms=dev_, plain_ms=pl_, bound_ms=bb_,
+                           bound_by=by_, ops=work[0], bytes=work[1])
+        ck.rows.append(dict(kernel="threefry", what=f"randint {shape}",
+                            **rows[label]))
+        log(f"threefry: randint {shape} ({n:,} words): {ms_:.4f} ms, "
+            f"device {'not measured' if dev_ is None else f'{dev_:.4f} ms'}"
+            f", plain {pl_:.3f} ms, bound {bb_:.4f} ms ({by_})")
+        del out
+
+    # a step's six draws on the host clock (splits included), kernel
+    # against the plain version on the card, in turns
+    def six(kernel: bool):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i, (shape, span) in enumerate(step):
+            k = jrandom.fold_in(jrandom.PRNGKey(31), i)
+            if kernel:
+                jrandom.randint(k, shape, 0, span, device=cuda)
+            else:
+                hv = [jrandom._words(x) for x in jrandom.split(k)]
+                jrandom._draw_plain(*hv, math.prod(shape), 0, span, 0, cuda,
+                                    None)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    ops.reset_launches()
+    six(True)
+    rows["step_six_draws_launches"] = sum(ops.threefry_counts().values())
+    assert rows["step_six_draws_launches"] == len(step), rows
+    six(False)
+    turns = {"kernel": [], "plain": []}
+    for _ in range(20):
+        for side in ("plain", "kernel", "kernel", "plain"):
+            turns[side].append(six(side == "kernel"))
+    rows["step_six_draws_host_ms"] = {
+        side: statistics.median(v) for side, v in turns.items()}
+    log(f"threefry: a cifar10_case2 step's six draws, host ms (median of "
+        f"40): kernel {rows['step_six_draws_host_ms']['kernel']:.4f}, plain "
+        f"{rows['step_six_draws_host_ms']['plain']:.4f}")
+    rows["sass"] = sass = threefry_sass()
+    for mode, ops_ in (sass or {"-": None}).items():
+        log(f"threefry: SASS of mode {mode}: "
+            f"{'not measured (no cuobjdump)' if ops_ is None else ops_}")
+    return rows
+
+
 def gemm_operands(make, label: str, name: str, ashape, bshape) -> tuple:
     """A and B of a COMPARE_SHAPES GEMM from make(*shape): X^T y's A the
     transposed view of (N, m, d) shares, the per-step model encode's A one
@@ -3698,6 +3913,10 @@ def main() -> int:
     parser.add_argument("--wide-only", action="store_true",
                         help="build, then phase 14 (the wide route) alone, "
                              "into chiprun_out/chip_smoke_wide.json")
+    parser.add_argument("--threefry-only", action="store_true",
+                        help="build, then phase 15 (the threefry kernel) "
+                             "alone, into chiprun_out/chip_smoke_threefry"
+                             ".json")
     parser.add_argument("--time-only", metavar="SRC", help=argparse.SUPPRESS)
     args = parser.parse_args()
     import numpy as np
@@ -3752,6 +3971,15 @@ def main() -> int:
         (OUT_DIR / "chip_smoke_lm_train.json").write_text(
             json.dumps(lm, indent=1))
         return 0
+    if args.threefry_only:
+        res = phase_threefry(ck)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_threefry.json").write_text(json.dumps(
+            dict(threefry=res, shapes=ck.rows), indent=1))
+        finish(torch, smi, [threefry_entry(
+            ck, res, res["step_six_draws_launches"],
+            "a cifar10_case2 step's six draws (phase 15)", {})])
+        return 0
     if args.wide_only:
         rows, wide, runs = phase_wide(ck, np)
         OUT_DIR.mkdir(exist_ok=True)
@@ -3800,6 +4028,7 @@ def main() -> int:
             launch_counts
         report["lm"] = phase_lm(ck)
         report["lm_train"] = phase_lm_train(ck)
+        report["threefry"] = phase_threefry(ck)
         for name in FUSED_PATH:
             counts[name] = fused_counts[name]
             path[name] = "fused cifar10_case2"
@@ -3841,10 +4070,21 @@ def main() -> int:
         for run, c in proc_runs.items():
             for name in TPU_KERNEL:
                 by_path[name][run] = c.get(count_key(name), 0)
+        # the threefry kernel: every draw of the fused fit (set-up's and
+        # six a step), and by path every run's
+        assert fused_counts["threefry"] >= 6 * summary["iters"], fused_counts
+        tf_by_path = {f"{r} cifar10_case2": c.get("threefry", 0)
+                      for r, c in runs.items()}
+        tf_by_path.update({r: c.get("threefry", 0)
+                           for r, c in proc_runs.items()})
     report["shapes"] = ck.rows
 
     kernels = kernel_entries(ck, list(TPU_KERNEL), rows, proc_rows, counts,
                              path, by_path)
+    if not args.quick:
+        kernels.append(threefry_entry(
+            ck, report["threefry"], fused_counts["threefry"],
+            "fused cifar10_case2", tf_by_path))
     report["kernels"] = kernels
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))

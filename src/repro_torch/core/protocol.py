@@ -869,6 +869,7 @@ def _rank_train(rank, handle, key, iters: int, history: bool, overlap: bool,
         rank=rank.rank, device=str(dev), backend=rank.backend,
         iters_s=time.perf_counter() - t0, launches=ops.launch_counts(),
         gemm_paths=ops.gemm_path_counts(), wide=ops.wide_counts(),
+        threefry=ops.threefry_counts(),
         peak_bytes=torch.cuda.max_memory_allocated(dev)
         if dev.type == "cuda" else None,
         sent_bytes=dict(rank.sent_bytes))

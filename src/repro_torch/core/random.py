@@ -16,16 +16,23 @@ That package uses `jax.random` with the NON-partitionable threefry layout
 
 A key is a (2,) int64 tensor holding two uint32 words.  Keys are derived
 on the host with Python ints (a split is a handful of hashes), so a key
-never forces a device sync; only the bulk draws in `randint` run as tensor
-code on the caller's device.  uint32 wraparound and logical shifts are
+never forces a device sync; only the bulk draws run on the caller's
+device.  In the plain version uint32 wraparound and logical shifts are
 emulated in int64 with `& 0xFFFFFFFF` masks.
 
 The legacy `random_bits` layout hashes the counter vector iota(n) as two
 halves: counter pair q = (q, q + h), h = ceil(n / 2), gives output words q
 and h + q; an odd n pads the second half with one counter 0 whose output is
-dropped.  `randint` walks the pairs in chunks so that a (7, 9019, 3073)
-draw never materialises more than a few chunk-sized int64 temporaries.
-Each bulk draw (`_draw`, `bits32`) is one `obs` span, `random.threefry`.
+dropped.
+
+On a CUDA device each bulk draw (`_draw`, `bits32`) is one launch of the
+hand-written kernel kernels/csrc/threefry.cu (launched by
+kernels/threefry.py), which computes the same words in native uint32
+arithmetic.  On the CPU it runs the plain
+int64 version below (`_draw_plain`, `_bits32_plain`), which the CPU tests
+hold to JAX; `_draw_plain` walks the pairs in chunks so that a (7, 9019,
+3073) draw never materialises more than a few chunk-sized int64
+temporaries.  Each bulk draw is one `obs` span, `random.threefry`.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..kernels import threefry as _kernel
 
 M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -142,17 +150,12 @@ def randint(key, shape, minval: int, maxval: int, *,
 def randint_keys(keys, shape, minval: int, maxval: int, *,
                  device="cpu") -> torch.Tensor:
     """torch.stack([randint(k, shape, minval, maxval) for k in keys]) as
-    one draw: the K keys' words ride as (K, 1) tensors through the same
-    hash, so a draw for every client of a round is one pass of elementwise
-    ops instead of K.  keys: (K, 2).  Returns (K,) + shape."""
+    one draw, a row a key: one kernel launch on the card (a launch a 64
+    keys), and on the CPU one pass of elementwise ops with the K keys'
+    words as (K, 1) tensors.  keys: (K, 2).  Returns (K,) + shape."""
     shape = tuple(int(s) for s in shape)
-    halves = [split(k) for k in keys]
-
-    def col(i: int, w: int):
-        return torch.tensor([[int(h[i][w])] for h in halves],
-                            dtype=torch.int64, device=device)
-
-    out = _draw((col(0, 0), col(0, 1)), (col(1, 0), col(1, 1)),
+    halves = [split(k).tolist() for k in keys]
+    out = _draw([tuple(h[0]) for h in halves], [tuple(h[1]) for h in halves],
                 math.prod(shape), int(minval), int(maxval), device,
                 rows=len(halves))
     return out.reshape((len(halves),) + shape)
@@ -160,53 +163,79 @@ def randint_keys(keys, shape, minval: int, maxval: int, *,
 
 def _draw(hi_key, lo_key, n: int, minval: int, maxval: int, device,
           rows: int | None = None) -> torch.Tensor:
-    """randint's n words for one key (words as Python ints; returns (n,))
-    or for `rows` keys at once (words as (rows, 1) tensors; returns
-    (rows, n))."""
+    """randint's n words for one key (its halves' words as (k0, k1) Python
+    ints; returns (n,)) or for `rows` keys at once (lists of such pairs;
+    returns (rows, n)): one kernel launch on a CUDA device, the plain
+    int64 version on the CPU."""
     if not -(1 << 31) <= minval <= maxval <= (1 << 31) - 1:
         raise ValueError(f"int32 randint bounds, got [{minval}, {maxval})")
     span = max(maxval - minval, 1)
     mult = (1 << 16) % span
     mult = ((mult * mult) & M32) % span
-    lead = () if rows is None else (rows,)
     with obs.span("random.threefry"):
-        out = torch.empty(lead + (n,), dtype=torch.int32, device=device)
-        h = (n + 1) // 2
-        chunk = max(1, _CHUNK // (rows or 1))
-        for qs in range(0, h, chunk):
-            qe = min(h, qs + chunk)
-            c0 = torch.arange(qs, qe, dtype=torch.int64, device=device)
-            c1 = c0 + h
-            if n % 2 and qe == h:
-                c1[-1] = 0                # the odd count's zero pad
-            lo = threefry2x32(*lo_key, c0, c1)
-            offs = [w % span for w in lo]
-            if mult:
-                hi = threefry2x32(*hi_key, c0, c1)
-                offs = [((((hw % span) * mult) & M32) + o) & M32
-                        for hw, o in zip(hi, offs)]
-                offs = [o % span for o in offs]
-            out[..., qs:qe] = (offs[0] + minval).to(torch.int32)
-            tail = min(qe, n - h) - qs    # second-half words inside [0, n)
-            if tail > 0:
-                out[..., h + qs:h + qs + tail] = (offs[1][..., :tail]
-                                                  + minval).to(torch.int32)
+        if torch.device(device).type == "cuda":
+            return _kernel.randint(lo_key, hi_key, n, minval, span, mult,
+                                   device, rows)
+        return _draw_plain(hi_key, lo_key, n, minval, span, mult, device,
+                           rows)
+
+
+def _draw_plain(hi_key, lo_key, n: int, minval: int, span: int, mult: int,
+                device, rows: int | None) -> torch.Tensor:
+    """_draw in int64 torch ops, in chunks of _CHUNK counter pairs; a
+    `rows` draw's keys ride as (rows, 1) tensors through the same hash."""
+    if rows is not None:
+        def col(keys, w: int):
+            return torch.tensor([[k[w]] for k in keys], dtype=torch.int64,
+                                device=device)
+        hi_key = (col(hi_key, 0), col(hi_key, 1))
+        lo_key = (col(lo_key, 0), col(lo_key, 1))
+    lead = () if rows is None else (rows,)
+    out = torch.empty(lead + (n,), dtype=torch.int32, device=device)
+    h = (n + 1) // 2
+    chunk = max(1, _CHUNK // (rows or 1))
+    for qs in range(0, h, chunk):
+        qe = min(h, qs + chunk)
+        c0 = torch.arange(qs, qe, dtype=torch.int64, device=device)
+        c1 = c0 + h
+        if n % 2 and qe == h:
+            c1[-1] = 0                    # the odd count's zero pad
+        lo = threefry2x32(*lo_key, c0, c1)
+        offs = [w % span for w in lo]
+        if mult:
+            hi = threefry2x32(*hi_key, c0, c1)
+            offs = [((((hw % span) * mult) & M32) + o) & M32
+                    for hw, o in zip(hi, offs)]
+            offs = [o % span for o in offs]
+        out[..., qs:qe] = (offs[0] + minval).to(torch.int32)
+        tail = min(qe, n - h) - qs        # second-half words inside [0, n)
+        if tail > 0:
+            out[..., h + qs:h + qs + tail] = (offs[1][..., :tail]
+                                              + minval).to(torch.int32)
     return out
 
 
 def bits32(key, shape, *, device="cpu") -> torch.Tensor:
     """jax.random.bits(key, shape, uint32): the hash of counters iota(n)
-    under the key itself (no split), as int64 words in [0, 2^32)."""
+    under the key itself (no split), as int64 words in [0, 2^32); one
+    kernel launch on a CUDA device, the plain int64 version on the CPU."""
     k0, k1 = _words(key)
     n = math.prod(shape)
-    h = (n + 1) // 2
     with obs.span("random.threefry"):
-        c0 = torch.arange(h, dtype=torch.int64, device=device)
-        c1 = c0 + h
-        if n % 2:
-            c1[-1] = 0                    # the odd count's zero pad
-        w0, w1 = threefry2x32(k0, k1, c0, c1)
-        return torch.cat([w0, w1])[:n].reshape(shape)
+        if torch.device(device).type == "cuda":
+            return _kernel.bits32(k0, k1, n, device).reshape(shape)
+        return _bits32_plain(k0, k1, n, device).reshape(shape)
+
+
+def _bits32_plain(k0: int, k1: int, n: int, device) -> torch.Tensor:
+    """bits32's (n,) words in int64 torch ops."""
+    h = (n + 1) // 2
+    c0 = torch.arange(h, dtype=torch.int64, device=device)
+    c1 = c0 + h
+    if n % 2:
+        c1[-1] = 0                        # the odd count's zero pad
+    w0, w1 = threefry2x32(k0, k1, c0, c1)
+    return torch.cat([w0, w1])[:n]
 
 
 def bits(key, shape, width: int = 32, *, device="cpu") -> torch.Tensor:

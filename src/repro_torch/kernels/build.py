@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-SOURCES = ("modmatmul", "fused_step", "coded_gradient", "field_poly")
+SOURCES = ("modmatmul", "fused_step", "coded_gradient", "field_poly",
+           "threefry")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -10,6 +10,8 @@ gemm_path_counts breaks the field GEMM's launches down by kernel path.
 Past d = 58,004 (plan.gradient_route) a coded gradient or fused step
 launches no body of the gradient kernel but the cluster kernel or the wide
 route's field kernels: it counts in wide_counts, not in LAUNCHES.
+core/random.py launches the threefry kernel itself (kernels/threefry.py):
+threefry_counts shows its launches by entry.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from . import field_poly as _fp
 from . import fused_step as _fs
 from . import modmatmul as _mm
 from . import ref
+from . import threefry as _tf
 from .plan import gradient_route
 
 KERNELS = ("modmatmul", "modmatmul_batched", "fused_step",
@@ -33,6 +36,7 @@ def reset_launches() -> None:
     LAUNCHES.clear()
     _mm.PATH_LAUNCHES.clear()
     _cg.WIDE_LAUNCHES.clear()
+    _tf.LAUNCHES.clear()
 
 
 def launch_counts() -> dict:
@@ -52,6 +56,13 @@ def wide_counts() -> dict:
     column-sum GEMM; the GEMMs also count in gemm_path_counts); and
     "epilogue", the fused step's epilogue launched on a wide one."""
     return {s: _cg.WIDE_LAUNCHES[s] for s in _cg.WIDE_STEPS}
+
+
+def threefry_counts() -> dict:
+    """Launches of the threefry kernel since the last reset, by entry:
+    "randint" (one key), "randint_keys" (a row a key; one launch per 64
+    rows) and "bits32".  A draw on the CPU counts nothing."""
+    return {e: _tf.LAUNCHES[e] for e in _tf.ENTRIES}
 
 
 def _count_gradient(name: str, d: int, c: int) -> None:

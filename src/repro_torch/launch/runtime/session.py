@@ -249,6 +249,6 @@ def _assemble_measured(results, node, P, iters, wall, setup_wall,
         "wall_s": wall,
         "workers": [{k: results[r][k] for k in
                      ("device", "wall_s", "launches", "gemm_paths", "wide",
-                      "gemms")}
+                      "threefry", "gemms")}
                     for r in range(P)],
     }

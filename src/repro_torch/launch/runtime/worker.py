@@ -393,6 +393,7 @@ def _run_session(node: net.Node, sess: dict):
             "launches": ops.launch_counts(),
             "gemm_paths": ops.gemm_path_counts(),
             "wide": ops.wide_counts(),
+            "threefry": ops.threefry_counts(),
             "gemms": sorted([*k, c] for k, c in gemm.calls.items()),
         }), phase="open_model")
 

@@ -14,12 +14,14 @@ import pytest
 import torch
 
 from repro_torch import api
-from repro_torch.core import field
+from repro_torch.api import workloads
+from repro_torch.core import field, protocol
+from repro_torch.core import random as jrandom
 from repro_torch.kernels import coded_gradient as cg
 from repro_torch.kernels import field_poly as fp
 from repro_torch.kernels import fused_step as fs
 from repro_torch.kernels import modmatmul as mm
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops, ref, threefry
 
 pytestmark = pytest.mark.gpu
 
@@ -380,3 +382,91 @@ def test_refused_launches_raise(cuda):
         mm.splitk(a, y, out, dict(bn=32, rg=4, gx=1, kc=64, splits=2))
     with pytest.raises(RuntimeError, match="splitk"):       # kc past 4096
         mm.splitk(a, y, out, dict(bn=32, rg=4, gx=1, kc=8192, splits=1))
+
+
+# the six draws of a cifar10_case2 step (T = 7, N = 50, d = 3,073): the
+# model encode's v and its Shamir coefficients, the masks' mix, TruncPr's
+# r (span 2^k2) and the coefficients of [r] and [r0]
+CIFAR_STEP_DRAWS = [((7, 3073), P), ((7, 7, 3073), P), ((7, 50, 3073), P),
+                    ((3073,), 1 << 25), ((7, 3073), P), ((7, 3073), P)]
+
+
+def _one_launch(entry: str, launches: int = 1) -> None:
+    counts = ops.threefry_counts()
+    assert counts == {e: launches if e == entry else 0
+                      for e in threefry.ENTRIES}, counts
+
+
+@pytest.mark.parametrize("shape,bounds", [
+    *[(s, (0, span)) for s, span in CIFAR_STEP_DRAWS],
+    ((7,), (0, P)), ((4097,), (0, 1 << 24)), ((5, 3), (0, 1000)),
+    ((1,), (0, 1000)), ((1001,), (-(1 << 31), (1 << 31) - 1)),
+    ((9,), (3, 4))])
+def test_threefry_randint_matches_plain(cuda, shape, bounds):
+    """The step's draw shapes, odd sizes, a span whose uint32 multiplier
+    is nonzero (1000), negative minval, span 1: one launch a draw, the
+    plain version's words bit for bit."""
+    key = jrandom.fold_in(jrandom.PRNGKey(17), sum(shape))
+    ops.reset_launches()
+    got = jrandom.randint(key, shape, *bounds, device=cuda)
+    _one_launch("randint")
+    _eq(got, jrandom.randint(key, shape, *bounds))
+
+
+def test_threefry_setup_draw_matches_plain(cuda):
+    """Set-up's largest draw, X's Shamir coefficients at cifar10_case2
+    (194M words), against the plain version run on the card."""
+    key = jrandom.fold_in(jrandom.PRNGKey(3), 1)
+    shape = (7, 9019, 3073)
+    ops.reset_launches()
+    got = field.random_field(key, shape, cuda)
+    _one_launch("randint")
+    halves = [jrandom._words(k) for k in jrandom.split(key)]
+    want = jrandom._draw_plain(*halves, 7 * 9019 * 3073, 0, P, 0, cuda,
+                               None).reshape(shape)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("k,shape,span", [(3, (7, 5), P), (3, (3, 4), 1000),
+                                          (70, (1001,), P), (64, (2,), 1)])
+def test_threefry_randint_keys_matches_plain(cuda, k, shape, span):
+    """A row a key, one launch a 64 rows."""
+    keys = jrandom.split(jrandom.PRNGKey(5), k)
+    ops.reset_launches()
+    got = jrandom.randint_keys(keys, shape, 0, span, device=cuda)
+    _one_launch("randint_keys", -(-k // 64))
+    _eq(got, jrandom.randint_keys(keys, shape, 0, span))
+
+
+@pytest.mark.parametrize("shape", [(1,), (7,), (4097,), (3, 5)])
+def test_threefry_bits32_matches_plain(cuda, shape):
+    key = jrandom.PRNGKey(23)
+    ops.reset_launches()
+    got = jrandom.bits32(key, shape, device=cuda)
+    _one_launch("bits32")
+    assert got.dtype == torch.int64
+    _eq(got, jrandom.bits32(key, shape))
+    for width in (8, 16):
+        _eq(jrandom.bits(key, shape, width, device=cuda),
+            jrandom.bits(key, shape, width))
+    _eq(jrandom.uniform(key, shape, device=cuda), jrandom.uniform(key, shape))
+
+
+def test_copml_train_on_the_card_equals_the_cpu(cuda):
+    """Every draw of a short COPML job on the card is the kernel's, and the
+    job's history and shares equal the CPU run's bit for bit."""
+    wl = workloads.get("smoke")
+    cx, cy = wl.client_data()
+    runs = {}
+    for dev in ("cpu", cuda):
+        proto = protocol.Copml(wl.cfg, wl.m, wl.d, objective=wl.objective,
+                               device=dev)
+        ops.reset_launches()
+        state, _, hist = proto.train(7, cx, cy, 3, history=True)
+        runs[str(dev)] = (state.w_shares.cpu(), hist.cpu(),
+                          ops.threefry_counts())
+    (sh_cpu, h_cpu, n_cpu), (sh_card, h_card, n_card) = runs.values()
+    _eq(sh_card, sh_cpu)
+    assert torch.equal(h_card, h_cpu)
+    assert not any(n_cpu.values())
+    assert n_card["randint"] > 0 and n_card["bits32"] == 0

@@ -88,7 +88,7 @@ def test_kernel_sources_and_launch_counts():
     for name in build.SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
     assert set(build.SOURCES) == {"modmatmul", "fused_step",
-                                  "coded_gradient", "field_poly"}
+                                  "coded_gradient", "field_poly", "threefry"}
     assert build.BUILD_DIR.name == "build"
     # every TPU kernel of the JAX package has a launch counter
     assert set(ops.KERNELS) == {

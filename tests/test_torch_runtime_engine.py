@@ -73,6 +73,7 @@ def test_proc_engine_reproduces_the_smoke_goldens():
     for rec in mc["workers"]:
         assert not any(rec["launches"].values())
         assert not any(rec["gemm_paths"].values())
+        assert not any(rec["threefry"].values())
     _assert_worker_gemms(res, api.get_workload("smoke"))
 
 

@@ -138,6 +138,7 @@ def test_sharded4_equals_jax_jit(name, overlap, jax_refs):
     for r in ranks:
         assert set(r["sent_bytes"]) == kinds
         assert all(v > 0 for v in r["sent_bytes"].values())
+        assert not any(r["threefry"].values())      # CPU draws launch none
 
 
 @pytest.mark.parametrize("overlap", ["0", "1"], indirect=True)
