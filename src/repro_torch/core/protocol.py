@@ -455,12 +455,13 @@ class Copml:
                              "exclusive: the plan chooses each step's "
                              "decode subset")
         assert len(step_subsets) == iters, (len(step_subsets), iters)
-        idx, dvs = self.plan_constants(step_subsets)
-        adv = None
-        if adversaries is not None and np.asarray(adversaries).any():
-            adv = np.array(adversaries, bool)        # a writable copy
-            assert adv.shape == (iters, self.cfg.n_clients), adv.shape
-            adv = torch.from_numpy(adv).to(self.device)
+        with obs.span("setup.faults"):
+            idx, dvs = self.plan_constants(step_subsets)
+            adv = None
+            if adversaries is not None and np.asarray(adversaries).any():
+                adv = np.array(adversaries, bool)    # a writable copy
+                assert adv.shape == (iters, self.cfg.n_clients), adv.shape
+                adv = torch.from_numpy(adv).to(self.device)
         return idx, dvs, adv
 
     # ------------------------------------------------------------------ train
@@ -479,18 +480,21 @@ class Copml:
 
         step_subsets / adversaries carry a fault plan: per-step decode
         subsets and an (iters, N) corruption mask, compiled once into
-        device tensors before the setup.  `timings`, when given, receives
-        setup_s and iters_s: wall seconds of the setup and of the iteration
-        loop, each ending in a device synchronise; and spans: the run's
-        obs spans (setup.*, train.step and the phases inside it), path ->
-        [count, host seconds].  `callback(t, w)`, when given, receives the
-        opened model after step t.  Returns (state, w, history (iters,) +
-        w_shape or None)."""
+        device tensors before the setup (the `setup.faults` span).
+        `timings`, when given, receives setup_s and iters_s: wall seconds
+        of the setup and of the iteration loop, each ending in a device
+        synchronise; spans: the run's obs spans (setup.*, train.step and
+        the phases inside it), path -> [count, host seconds]; and counts:
+        this run's coded-gradient launches by route (ops.gradient_counts,
+        the difference across the run of the process's counters).
+        `callback(t, w)`, when given, receives the opened model after step
+        t.  Returns (state, w, history (iters,) + w_shape or None)."""
         subset = None if subset is None else tuple(subset)
         iters = int(iters)
-        faults = self._fault_xs(step_subsets, adversaries, iters, subset)
+        counts0 = ops.gradient_counts()
         rec = obs.Recorder()
         with rec if timings is not None else contextlib.nullcontext():
+            faults = self._fault_xs(step_subsets, adversaries, iters, subset)
             t0 = self._sync()
             ks, ki = jrandom.split(jrandom.as_key(key))
             state = self.setup(ks, client_xs, client_ys)
@@ -514,7 +518,10 @@ class Copml:
                             callback(t, w_t)
             t2 = self._sync()
         if timings is not None:
-            timings.update(setup_s=t1 - t0, iters_s=t2 - t1, spans=rec.spans)
+            counts = {k: v - counts0[k]
+                      for k, v in ops.gradient_counts().items()}
+            timings.update(setup_s=t1 - t0, iters_s=t2 - t1, spans=rec.spans,
+                           counts=counts)
         w = self.open_model(state)
         if not history:
             return state, w, None

@@ -29,6 +29,8 @@ from .plan import gradient_route
 KERNELS = ("modmatmul", "modmatmul_batched", "fused_step",
            "coded_gradient_batched", "coded_gradient_matrix",
            "coded_gradient", "poly_eval")
+GRADIENT_KERNELS = ("fused_step", "coded_gradient_batched",
+                    "coded_gradient_matrix", "coded_gradient")
 LAUNCHES: collections.Counter = collections.Counter()
 
 
@@ -56,6 +58,15 @@ def wide_counts() -> dict:
     column-sum GEMM; the GEMMs also count in gemm_path_counts); and
     "epilogue", the fused step's epilogue launched on a wide one."""
     return {s: _cg.WIDE_LAUNCHES[s] for s in _cg.WIDE_STEPS}
+
+
+def gradient_counts() -> dict:
+    """Coded gradients since the last reset, by route: each body kernel's
+    launches under its name in launch_counts ("fused_step" and the three
+    "coded_gradient*" entries), and wide_counts' "cluster", "gradient"
+    and "epilogue".  The body and the cluster kernel read X~ once a
+    gradient, the wide route twice."""
+    return dict({k: LAUNCHES[k] for k in GRADIENT_KERNELS}, **wide_counts())
 
 
 def threefry_counts() -> dict:

@@ -92,7 +92,8 @@ def test_wide_gradient_matches_plain(cuda, n, m, d, c):
     (2, 3, plan.cluster_max_d(), False),     # the cluster's widest d
     (3, 1, 65536, False),            # m below one slice
     (1, 9, 65536, False),            # one client
-    (5, 160, 100003, False)])        # shared-memory partials
+    (5, 160, 100003, False),         # shared-memory partials
+    (50, 80, 100000, False)])        # DOROTHEA's step: the smem instance
 def test_cluster_gradient_matches_plain(cuda, n, m, d, worst):
     assert plan.gradient_route(d, 1) == "cluster"
     _, x, w, co = _operands(3 * d + n, n, m, d, 1)

@@ -142,7 +142,8 @@ def test_span_names_are_not_the_benchmarks():
     for path in SRC.rglob("*.py"):
         names |= set(re.findall(r'obs\.span\(\s*"([^"]+)"',
                                 path.read_text()))
-    assert names == {"setup.rows", "setup.share", "setup.lcc", "train.step",
+    assert names == {"setup.rows", "setup.share", "setup.lcc",
+                     "setup.faults", "train.step",
                      "step.encode", "step.masks", "step.open",
                      "random.threefry", "serve.quantize", "serve.fetch"}
     assert not names & BENCH_RANGES

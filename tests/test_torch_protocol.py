@@ -95,7 +95,7 @@ def test_fit_smoke_reproduces_goldens():
     assert res.triple == ("smoke", "copml", "jit")
     assert res.device == "cpu"
     assert res.history.shape == (10, 12) and res.accuracy.shape == (10,)
-    assert set(res.timings) == {"setup_s", "iters_s", "spans"}
+    assert set(res.timings) == {"setup_s", "iters_s", "spans", "counts"}
 
 
 @pytest.mark.parametrize("name,iters", sorted(PINNED))
