@@ -33,6 +33,7 @@ bit-identical to the JAX package's on the same key.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import math
@@ -170,6 +171,74 @@ def state_from_numpy(w_shares, coded_x, xty_shares, step=0,
                       xty_shares=t(xty_shares), step=int(np.asarray(step)))
 
 
+#: set-up's rows, process totals: host-to-device copies of the clients' rows
+#: ("rows_copies", one a non-empty host client on a card), and bytes of
+#: them first copied into a host array of set-up's own ("rows_host_bytes":
+#: a client torch cannot copy where it lies, made contiguous)
+ROWS_COUNTS = collections.Counter(rows_copies=0, rows_host_bytes=0)
+
+
+def counters() -> dict:
+    """The process's counts whose change across a job Copml.train reports
+    as timings["counts"]: ops.gradient_counts and ROWS_COUNTS."""
+    return dict(ops.gradient_counts(), **ROWS_COUNTS)
+
+
+def _client_tensor(x) -> tuple:
+    """(a tensor over one client's rows, host bytes copied to make it): a
+    C-contiguous host array in native byte order is viewed where it lies
+    (torch.from_numpy); any other host array or tensor is first copied
+    into a contiguous one.  A tensor on a card is taken as it is."""
+    if isinstance(x, torch.Tensor):
+        if x.device.type != "cpu" or x.is_contiguous():
+            return x, 0
+        x = x.contiguous()
+        return x, x.nbytes
+    a = np.asarray(x)
+    staged = 0
+    if not (a.flags.c_contiguous and a.dtype.isnative):
+        a = np.ascontiguousarray(a, a.dtype.newbyteorder("="))
+        staged = a.nbytes
+    with warnings.catch_warnings():
+        # the view is only read
+        warnings.filterwarnings("ignore", "The given NumPy array is not "
+                                "writable")
+        return torch.from_numpy(a), staged
+
+
+def stage_rows(client_xs: Sequence, d: int, device) -> tuple:
+    """The clients' (m_j, d) rows as one float32 (m, d) tensor on `device`,
+    each client's rows copied from the caller's array straight into its
+    row slice: no host array of all the rows is made.  A float32 client is
+    one host-to-device copy; any other dtype is copied as it is and cast
+    on the device (float64 rounds to the nearest float32, integers and
+    float16 are exact), so the rows are np.concatenate's rows cast to
+    float32 for any clients it accepts.  No copy waits for the device.
+    Returns (rows, host-to-device copies, host bytes staged)."""
+    device = torch.device(device)
+    srcs, staged = [], 0
+    for j, x in enumerate(client_xs):
+        src, nb = _client_tensor(x)
+        if src.dim() != 2 or src.shape[1] != d:
+            raise ValueError(f"client {j}'s rows have shape "
+                             f"{tuple(src.shape)}; expected (m_{j}, {d})")
+        srcs.append(src)
+        staged += nb
+    rows = torch.empty((sum(s.shape[0] for s in srcs), d),
+                       dtype=torch.float32, device=device)
+    copies, lo = 0, 0
+    for src in srcs:
+        hi = lo + src.shape[0]
+        if hi > lo:
+            if src.device.type == "cpu" and device.type != "cpu":
+                copies += 1
+                if src.dtype != torch.float32:
+                    src = src.to(device, non_blocking=True)
+            rows[lo:hi].copy_(src, non_blocking=True)
+        lo = hi
+    return rows, copies, staged
+
+
 def resolve_device(device=None) -> torch.device:
     """The run's device: `device` if given, else the CUDA card; raises when
     no card is present and the caller did not ask for the CPU."""
@@ -230,12 +299,7 @@ class Copml:
 
         # Phase 1 (LOCAL): quantize into F_p
         with obs.span("setup.rows"):
-            xq = quantize.quantize(np.concatenate(
-                [np.asarray(x) for x in client_xs], axis=0), cfg.lx, dev)
-            targets = self.obj.prepare_targets(
-                np.concatenate([np.asarray(y) for y in client_ys], axis=0))
-            yq = quantize.quantize(np.asarray(targets, np.float32), cfg.lg,
-                                   dev)
+            xq, yq = self.quantize_rows(client_xs, client_ys)
 
         # Phase 2a (EXCHANGE): Shamir-share every client's data
         with obs.span("setup.share"):
@@ -281,6 +345,22 @@ class Copml:
                                  device=dev), cfg.t, n, self.lambdas)
         return CopmlState(w_shares=w_shares, coded_x=coded_x,
                           xty_shares=xty_shares.contiguous(), step=0)
+
+    def quantize_rows(self, client_xs: Sequence,
+                      client_ys: Sequence) -> tuple:
+        """Phase 1 (LOCAL): the clients' rows and targets quantized into F_p
+        on the device, (xq (m, d), yq (m,) + out_shape).  The rows reach
+        the device through stage_rows, one copy a client into one buffer,
+        and are quantized there at once; ROWS_COUNTS counts the copies."""
+        rows, copies, staged = stage_rows(client_xs, self.d, self.device)
+        ROWS_COUNTS.update(rows_copies=copies, rows_host_bytes=staged)
+        xq = quantize.quantize(rows, self.cfg.lx, self.device)
+        del rows
+        targets = self.obj.prepare_targets(
+            np.concatenate([np.asarray(y) for y in client_ys], axis=0))
+        yq = quantize.quantize(np.asarray(targets, np.float32), self.cfg.lg,
+                               self.device)
+        return xq, yq
 
     # ------------------------------------------------------- one GD iteration
 
@@ -485,13 +565,14 @@ class Copml:
         of the setup and of the iteration loop, each ending in a device
         synchronise; spans: the run's obs spans (setup.*, train.step and
         the phases inside it), path -> [count, host seconds]; and counts:
-        this run's coded-gradient launches by route (ops.gradient_counts,
-        the difference across the run of the process's counters).
+        this run's coded-gradient launches by route (ops.gradient_counts)
+        and set-up's row copies and staged host bytes (ROWS_COUNTS), the
+        difference across the run of the process's counters.
         `callback(t, w)`, when given, receives the opened model after step
         t.  Returns (state, w, history (iters,) + w_shape or None)."""
         subset = None if subset is None else tuple(subset)
         iters = int(iters)
-        counts0 = ops.gradient_counts()
+        counts0 = counters()
         rec = obs.Recorder()
         with rec if timings is not None else contextlib.nullcontext():
             faults = self._fault_xs(step_subsets, adversaries, iters, subset)
@@ -518,8 +599,7 @@ class Copml:
                             callback(t, w_t)
             t2 = self._sync()
         if timings is not None:
-            counts = {k: v - counts0[k]
-                      for k, v in ops.gradient_counts().items()}
+            counts = {k: v - counts0[k] for k, v in counters().items()}
             timings.update(setup_s=t1 - t0, iters_s=t2 - t1, spans=rec.spans,
                            counts=counts)
         w = self.open_model(state)

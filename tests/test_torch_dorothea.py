@@ -6,7 +6,8 @@ model against the plain gradient; a small Copml past d = 58,004 held to
 the benchmark's plain reference (`bench/reference/copml_logreg.py`, loaded
 by path); a job under a per-step straggler plan against the fault-free
 job of the same key; and `timings["counts"]`, one job's coded gradients
-by route, with the process's counters already holding other launches.
+by route (and set-up's row copies, none on the CPU), with the process's
+counters already holding other launches.
 """
 
 import collections
@@ -71,7 +72,8 @@ def counted(monkeypatch):
 
 
 def _counts(**kw) -> dict:
-    out = dict.fromkeys(ops.GRADIENT_KERNELS + cg.WIDE_STEPS, 0)
+    out = dict.fromkeys(ops.GRADIENT_KERNELS + cg.WIDE_STEPS
+                        + ("rows_copies", "rows_host_bytes"), 0)
     out.update(kw)
     return out
 

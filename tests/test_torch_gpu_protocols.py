@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from repro_torch import api
-from repro_torch.core import field
+from repro_torch.core import field, protocol, quantize
+from repro_torch.core import random as jrandom
 from repro_torch.kernels import modmatmul as mm
 from repro_torch.kernels import ops, ref
 from repro_torch.serve import coded
@@ -291,3 +292,55 @@ def test_launch_counter_on_the_card(cuda):
     assert counts["fused_step"] == 2
     assert cnt["device_kernels_per_step"] > sum(cnt["launches"].values())
     assert 0.0 < cnt["idle_share"] < 1.0 and cnt["device_ms_per_step"] > 0
+
+
+def _concatenated_rows(proto, client_xs, client_ys):
+    """Phase 1 as one host array: the clients' rows joined by
+    np.concatenate, copied to the card and quantized there."""
+    xq = quantize.quantize(np.concatenate(client_xs), proto.cfg.lx,
+                           proto.device)
+    yq = quantize.quantize(np.asarray(proto.obj.prepare_targets(
+        np.concatenate(client_ys)), np.float32), proto.cfg.lg, proto.device)
+    return xq, yq
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_setup_rows_on_the_card_equal_the_concatenated_rows(cuda,
+                                                            monkeypatch,
+                                                            mixed):
+    """cifar10_case2's shape (m = 9,019, d = 3,073, N = 50, K = 10, T = 7),
+    each client's rows copied straight into one buffer on the card: the
+    field elements and the CopmlState equal those of the rows concatenated
+    on the host, and a job counts one copy a client and no host bytes
+    staged.  `mixed`: every third client float64, every third int8."""
+    m, d, n = 9019, 3073, 50
+    rng = np.random.default_rng(29)
+    x = np.clip(rng.normal(0.0, 0.5, (m, d)), -1.0, 1.0)
+    y = (rng.random(m) < 0.5).astype(np.float32)
+    parts = np.array_split(np.arange(m), n)
+    srcs = (x.astype(np.float32),)
+    if mixed:
+        srcs += (x, np.round(x * 100).astype(np.int8))
+    cx = [srcs[j % len(srcs)][i] for j, i in enumerate(parts)]
+    cy = [y[i] for i in parts]
+    cfg = protocol.CopmlConfig(n_clients=n, k=10, t=7)
+    proto = protocol.Copml(cfg, m, d, device=cuda)
+    xq, yq = proto.quantize_rows(cx, cy)
+    want_x, want_y = _concatenated_rows(proto, cx, cy)
+    assert torch.equal(xq, want_x) and torch.equal(yq, want_y)
+    del xq, want_x
+
+    key = jrandom.as_key(5)
+    got = proto.setup(key, cx, cy)
+    with monkeypatch.context() as mp:
+        mp.setattr(proto, "quantize_rows",
+                   lambda xs, ys: _concatenated_rows(proto, xs, ys))
+        want = proto.setup(key, cx, cy)
+    for f in ("w_shares", "coded_x", "xty_shares"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    del got, want
+    timings = {}
+    proto.train(3, cx, cy, 1, timings=timings)
+    assert timings["counts"]["rows_copies"] == n
+    assert timings["counts"]["rows_host_bytes"] == 0
+    assert timings["spans"]["setup.rows"][0] == 1

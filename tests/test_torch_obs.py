@@ -126,6 +126,18 @@ def test_spans_leave_the_bits_as_they_were(profiled):
     assert timings["spans"]["train.step"][0] == 3
 
 
+def test_setup_rows_opens_once_a_job_and_counts_its_copies():
+    """Each job's timings hold setup.rows once and set-up's two row counts:
+    no copy to a card and no host bytes staged, on the CPU."""
+    _, proto, cx, cy = _smoke_copml()
+    for key in (1, 2):
+        timings = {}
+        proto.train(key, cx, cy, 2, timings=timings)
+        assert timings["spans"]["setup.rows"][0] == 1
+        counts = timings["counts"]
+        assert counts["rows_copies"] == counts["rows_host_bytes"] == 0
+
+
 def test_serving_window_spans():
     res = api.fit("smoke", "copml", "jit", key=0, iters=2, device="cpu")
     srv = api.serve("smoke", res, "jit", device="cpu")

@@ -18,7 +18,8 @@ import torch
 from repro.api import workloads as jworkloads
 from repro.core.protocol import Copml as JCopml
 from repro_torch import api
-from repro_torch.core import meshutil, protocol
+from repro_torch.api import workloads
+from repro_torch.core import meshutil, protocol, quantize
 from repro_torch.core import random as jrandom
 
 GOLDEN_W = [0.25, -0.375, 0.375, 0.5, -0.125, 0.25, 0.875, 1.25, -0.5,
@@ -84,6 +85,83 @@ def test_setup_and_iteration_match_jax(name):
     _eq(tnext.w_shares, jnext.w_shares)
     assert tnext.step == int(jnext.step) == 1
     _eq(tproto.open_model(tnext), jproto.open_model(jnext))
+
+
+def _concatenated_rows(proto, client_xs, client_ys):
+    """Phase 1 as one host array: every client's rows joined by
+    np.concatenate (its dtype promotion included), then quantized."""
+    xq = quantize.quantize(np.concatenate(
+        [np.asarray(x) for x in client_xs], axis=0), proto.cfg.lx,
+        proto.device)
+    targets = proto.obj.prepare_targets(
+        np.concatenate([np.asarray(y) for y in client_ys], axis=0))
+    yq = quantize.quantize(np.asarray(targets, np.float32), proto.cfg.lg,
+                           proto.device)
+    return xq, yq
+
+
+def _client_rows(kind, x, n):
+    """Clients of a kind of input: np.array_split's (sizes one row apart),
+    with empty clients, in float64, int8, a mix of dtypes, CPU tensors."""
+    parts = np.array_split(np.arange(x.shape[0]), n)
+    f32 = x.astype(np.float32)
+    i8 = np.round(x * 90).astype(np.int8)
+    if kind == "split":
+        return [f32[i] for i in parts]
+    if kind == "empty":
+        return [f32[:0]] + [f32[i] for i in parts[:-1]] + \
+            [np.zeros((0, x.shape[1]), np.float32), f32[parts[-1]]]
+    if kind == "float64":
+        return [x[i] for i in parts]
+    if kind == "int8":
+        return [i8[i] for i in parts]
+    if kind == "mixed":
+        srcs = (x, f32, i8)
+        return [srcs[j % 3][i] for j, i in enumerate(parts)]
+    assert kind == "tensor"
+    return [torch.from_numpy(f32[i]) for i in parts]
+
+
+@pytest.mark.parametrize("kind", ["split", "empty", "float64", "int8",
+                                  "mixed", "tensor"])
+def test_setup_rows_equal_the_concatenated_rows(monkeypatch, kind):
+    """setup.rows stages each client's rows straight into one buffer: its
+    field elements equal those of the clients' rows concatenated on the
+    host and quantized, and so does the whole CopmlState, with no host
+    bytes staged and no copy to a card counted on the CPU."""
+    wl = workloads.get("smoke")
+    cx, cy = wl.client_data()
+    x = np.concatenate(cx).astype(np.float64) * 1.37
+    y = np.concatenate(cy)
+    cy = [y[i] for i in np.array_split(np.arange(len(y)), wl.n_clients)]
+    cx = _client_rows(kind, x, wl.n_clients)
+    if kind == "empty":
+        cy = [y[:0]] + cy[:-1] + [y[:0], cy[-1]]
+    proto = protocol.Copml(wl.cfg, wl.m, wl.d, objective=wl.objective,
+                           device="cpu")
+    before = dict(protocol.ROWS_COUNTS)
+    xq, yq = proto.quantize_rows(cx, cy)
+    assert dict(protocol.ROWS_COUNTS) == before
+    want_x, want_y = _concatenated_rows(proto, cx, cy)
+    assert xq.dtype == want_x.dtype == torch.int32
+    assert torch.equal(xq, want_x) and torch.equal(yq, want_y)
+
+    key = jrandom.as_key(11)
+    got = proto.setup(key, cx, cy)
+    monkeypatch.setattr(proto, "quantize_rows",
+                        lambda xs, ys: _concatenated_rows(proto, xs, ys))
+    want = proto.setup(key, cx, cy)
+    for f in ("w_shares", "coded_x", "xty_shares"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert got.step == want.step == 0
+
+
+def test_setup_rows_refuse_rows_of_another_width():
+    wl = workloads.get("smoke")
+    cx, cy = wl.client_data()
+    proto = protocol.Copml(wl.cfg, wl.m, wl.d, device="cpu")
+    with pytest.raises(ValueError, match="client 1's rows"):
+        proto.quantize_rows([cx[0], cx[1][:, :-1]], cy[:2])
 
 
 def test_fit_smoke_reproduces_goldens():
