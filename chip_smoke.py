@@ -46,31 +46,27 @@ Phases (a failed phase fails the run; no failure is caught):
   3. golden   api.fit on cuda reproduces the smoke goldens (weights, share
               and history sha256) and the pinned mnist10_like /
               linreg_smoke / cifar10_like / smoke_straggler shas of the JAX
-              package's runs, on the fused schedule and on the siloed one
-              (REPRO_FUSED_STEP=0); smoke_straggler under a fault plan
-              gives the JAX package's shas on both schedules; the MPC
-              baseline (bh08, bgw) and three secure_agg aggregation rounds
-              give the JAX package's pinned shas (MPC_SHAS, AGG_SHAS), and
+              package's runs; smoke_straggler under a fault plan gives the
+              JAX package's shas; the MPC baseline (bh08, bgw) and three
+              secure_agg aggregation rounds give the JAX package's pinned
+              shas (MPC_SHAS, AGG_SHAS), and
               smoke serving of a copml and a float result equals
               reference_scores
   4. full     api.fit("cifar10_case2", "copml", "jit", iters=5) on the card
               at the paper's full width (N=50, m=9019, d=3073, K=10, T=7);
               kernel launch counts are reset just before it and read just
               after, and the last step's fused_step operands are re-checked
-              against the plain version; every field GEMM of the fit is
-              counted by shape, path and phase (setup, step), re-checked
-              and timed by device time; no GEMM of the fit may take the
-              tiled kernel (X^T y takes the column-sum kernel)
-  5. siloed   the same fit on the siloed schedule: coded_gradient_batched
-              once per step, fused_step never, the last step's operands
-              re-checked, weights and history equal to the fused run's,
-              its GEMMs by shape and path as in phase 4;
-              then mnist10_like on the siloed schedule (the matrix kernel)
+              against the plain version
+  5. steps    two more steps from phase 4's final state profiled (device
+              ms by kernel), and every field GEMM of phase 4's fit counted
+              by shape, path and phase (setup, step), re-checked and timed
+              by device time; no GEMM of the fit may take the tiled kernel
+              (X^T y takes the column-sum kernel)
   6. faulty   the full fit under a fault plan (a straggler, and from step 3
-              an adversary: exactly R = 49 available), on both schedules:
-              weights and history equal to the fault-free run's, and the
-              fused step's adversary offset non-zero at steps 3 and 4,
-              its GEMMs by shape and path as in phase 4
+              an adversary: exactly R = 49 available): weights and history
+              equal to the fault-free run's, and the fused step's
+              adversary offset non-zero at steps 3 and 4, its GEMMs by
+              shape and path as in phase 5
   7. protocols  api.fit(FULL_WORKLOAD, p, "jit", iters=5) for p in
               mpc_baseline, secure_agg, float, poly_float, each with its
               counts reset just before and read just after: setup s,
@@ -187,11 +183,11 @@ Phases (a failed phase fails the run; no failure is caught):
               route's four kernels (Z on the row-dot GEMM, ghat on
               poly_eval, X~^T ghat on the column-sum GEMM, the fused step's
               epilogue) at the ten-class shapes against its plain version,
-              timed beside its bound; then api.fit fused and siloed (the
-              cluster route once a step, no two-read gradient), ten-class
-              siloed and fused (the wide route; 5 iterations each; each
-              pair bit-equal, the last steps re-checked, no tiled GEMM),
-              two fused and two ten-class siloed steps profiled, the fused
+              timed beside its bound; then api.fit binary (the cluster
+              route once a step, no two-read gradient) and ten-class (the
+              wide route; 5 iterations each; the last steps re-checked, no
+              tiled GEMM), two binary and two ten-class steps profiled, the
+              binary
               result served at batch 32 (split-K at K = 65,536, equal to
               reference_scores), and sharded:4 bit-equal to jit over 2
               steps (the cluster route in every rank).  Phase 10 also times
@@ -284,7 +280,7 @@ PINNED = {
         "7ece876243ab5f5a5015f937a52c9f3374642f42ff6b4d36009288148a2fbae6"),
 }
 # smoke_straggler, key 0, 6 iterations under FAULT_SCHEDULE: the JAX
-# package's (shares sha, history sha), the same on both of its schedules
+# package's (shares sha, history sha)
 FAULT_SCHEDULE = dict(stragglers={1: (0, 1), 4: (2,)}, dropouts={2: (7,)},
                       adversaries={3: (8,)})
 FAULTY_SHAS = (
@@ -311,9 +307,8 @@ AGG_SHAS = (
 FULL_WORKLOAD = "cifar10_case2"
 FULL_ITERS = 5
 
-# the kernels each full-width path launches (every one at least once)
+# the kernels the full-width path launches (every one at least once)
 FUSED_PATH = ("modmatmul", "modmatmul_batched", "fused_step")
-SILOED_PATH = ("modmatmul", "modmatmul_batched", "coded_gradient_batched")
 # the other protocols' and serving's paths (float GD runs no field kernel)
 PROTOCOL_PATHS = {"mpc_baseline": ("modmatmul", "modmatmul_batched"),
                   "secure_agg": ("modmatmul",), "float": (),
@@ -1114,7 +1109,14 @@ def phase_golden(np) -> None:
         r = api.fit(wl, "copml", "jit", key=0, iters=iters, device="cuda")
         assert sha(r.state.w_shares.cpu().numpy(), np.int32) == s_sha, wl
         assert sha(r.history, np.float32) == h_sha, wl
-    log("golden: smoke goldens and pinned shas reproduced on cuda")
+    plan = api.FaultPlan.from_schedule(13, 6, **FAULT_SCHEDULE)
+    r = api.fit("smoke_straggler", "copml", "jit", key=0, iters=6,
+                faults=plan, device="cuda")
+    got = (sha(r.state.w_shares.cpu().numpy(), np.int32),
+           sha(r.history, np.float32))
+    assert got == FAULTY_SHAS, got
+    log("golden: smoke goldens, pinned shas and the fault plan's shas "
+        "reproduced on cuda")
 
 
 def phase_full(ck: Checker, np) -> tuple:
@@ -1188,7 +1190,7 @@ def phase_full(ck: Checker, np) -> tuple:
     log(f"full: profiled steps {summary['profiled_steps']}")
     return counts, summary, res
 
-def phase_kernels_siloed(ck: Checker, quick: bool) -> dict:
+def phase_kernels_gradient(ck: Checker, quick: bool) -> dict:
     """The coded-gradient and poly_eval kernels against their plain
     versions (CPU copies, exact) at ragged and main-path shapes, timed."""
     torch = ck.torch
@@ -1253,7 +1255,7 @@ def phase_kernels_siloed(ck: Checker, quick: bool) -> dict:
                    ref.poly_eval(z.cpu(), co.cpu()),
                    f"{shape} degree {deg} offset {off}"
                    f"{' p - 1' if worst else ''}")
-    log(f"kernels: siloed ragged checks passed {dict(ck.checks)}")
+    log(f"kernels: coded-gradient ragged checks passed {dict(ck.checks)}")
     if quick:
         return {}
 
@@ -1310,7 +1312,7 @@ def phase_kernels_siloed(ck: Checker, quick: bool) -> dict:
         ck.rows.append(dict(kernel="poly_eval", what=label, **rec))
         rows.setdefault("poly_eval", dict(rec, workload="cifar10_case2"))
         del z, co
-    log(f"kernels: siloed main-path checks passed {dict(ck.checks)}")
+    log(f"kernels: coded-gradient main-path checks passed {dict(ck.checks)}")
     return rows
 
 
@@ -2002,7 +2004,7 @@ def phase_sharded(ck: Checker, np, fused) -> tuple:
     plan = api.FaultPlan.from_schedule(wl.n_clients, FULL_ITERS,
                                        stragglers={1: (0,)},
                                        adversaries={3: (7,)})
-    jref, _, _, _ = fit_full(ck, "1", faults=plan)
+    jref, _, _, _ = fit_full(ck, faults=plan)
     summary["faulty"] = {}
     for overlap in ("0", "1"):
         os.environ["REPRO_SHARDED_OVERLAP"] = overlap
@@ -2959,47 +2961,13 @@ def phase_lm_train(ck: Checker) -> dict:
     return out
 
 
-def set_schedule(mode: str) -> None:
-    """REPRO_FUSED_STEP for the next fit ("0" siloed, "1" fused)."""
-    os.environ["REPRO_FUSED_STEP"] = mode
-
-
-def phase_golden_siloed(np) -> None:
-    """The goldens and pins on the siloed schedule, and the fault plan's
-    shas on both schedules."""
-    from repro_torch import api
-    set_schedule("0")
-    res = api.fit("smoke", "copml", "jit", key=0, iters=10, device="cuda")
-    np.testing.assert_array_equal(np.asarray(res.weights, np.float64),
-                                  np.asarray(GOLDEN_W))
-    assert sha(res.state.w_shares.cpu().numpy(), np.int32) == \
-        GOLDEN_SHARES_SHA, "siloed smoke shares sha"
-    assert sha(res.history, np.float32) == GOLDEN_HIST_SHA, \
-        "siloed smoke history"
-    for (wl, iters), (s_sha, h_sha) in PINNED.items():
-        r = api.fit(wl, "copml", "jit", key=0, iters=iters, device="cuda")
-        assert sha(r.state.w_shares.cpu().numpy(), np.int32) == s_sha, wl
-        assert sha(r.history, np.float32) == h_sha, wl
-    plan = api.FaultPlan.from_schedule(13, 6, **FAULT_SCHEDULE)
-    for mode in ("0", "1"):
-        set_schedule(mode)
-        r = api.fit("smoke_straggler", "copml", "jit", key=0, iters=6,
-                    faults=plan, device="cuda")
-        got = (sha(r.state.w_shares.cpu().numpy(), np.int32),
-               sha(r.history, np.float32))
-        assert got == FAULTY_SHAS, (mode, got)
-    set_schedule("1")
-    log("golden: siloed goldens, pinned shas and the fault plan's shas "
-        "(both schedules) reproduced on cuda")
-
-
-def fit_full(ck: Checker, mode: str, record=(), faults=None,
-             workload=None, shape_log=None) -> tuple:
-    """api.fit(workload, iters=FULL_ITERS) on the card on schedule `mode`,
-    with the launch counts reset just before and read just after; the
-    arguments of every call to the ops entries named in `record` are kept.
-    Returns (result, counts, calls, peak bytes the fit allocated above what
-    was held when it started)."""
+def fit_full(ck: Checker, record=(), faults=None, workload=None,
+             shape_log=None) -> tuple:
+    """api.fit(workload, iters=FULL_ITERS) on the card, with the launch
+    counts reset just before and read just after; the arguments of every
+    call to the ops entries named in `record` are kept.  Returns (result,
+    counts, calls, peak bytes the fit allocated above what was held when it
+    started)."""
     torch = ck.torch
     from repro_torch import api
     from repro_torch.kernels import ops
@@ -3012,7 +2980,6 @@ def fit_full(ck: Checker, mode: str, record=(), faults=None,
             return real[name](*args, **kw)
         return call
 
-    set_schedule(mode)
     wl = api.get_workload(workload or FULL_WORKLOAD)
     wl.client_data()                       # dataset build is set-up
     torch.cuda.empty_cache()
@@ -3033,7 +3000,6 @@ def fit_full(ck: Checker, mode: str, record=(), faults=None,
     finally:
         for name in record:
             setattr(ops, name, real[name])
-        set_schedule("1")
     return res, counts, calls, torch.cuda.max_memory_allocated() - held
 
 
@@ -3050,76 +3016,10 @@ def same_model(np, got, want, what) -> None:
     np.testing.assert_array_equal(got.history, want.history, err_msg=what)
 
 
-def phase_siloed(ck: Checker, np, fused) -> tuple:
-    """FULL_WORKLOAD at full width on the siloed schedule, then
-    mnist10_like (the matrix kernel's path); returns (counts per kernel
-    from the path that runs it, summaries)."""
-    from repro_torch.launch.launch_counter import LaunchLog
-    from repro_torch import api
-    from repro_torch.kernels import coded_gradient as cg
-    from repro_torch.kernels import ref
-    shapes = LaunchLog()
-    res, counts, calls, peak = fit_full(
-        ck, "0", record=("coded_gradient_batched",), shape_log=shapes)
-    assert counts["coded_gradient_batched"] == FULL_ITERS, counts
-    assert counts["fused_step"] == 0, counts
-    assert not any(counts[f"wide:{s}"] for s in WIDE_ENTRIES.values()), \
-        counts
-    for name in SILOED_PATH:
-        assert counts[name] > 0, f"{name} was not launched on the siloed path"
-    x, w, co = calls["coded_gradient_batched"][-1][0]
-    ck.compare("coded_gradient_batched", cg.coded_gradient_batched(x, w, co),
-               ref.coded_gradient_batched(x.cpu(), w.cpu(), co.cpu()),
-               f"{res.workload} siloed last step")
-    same_model(np, res, fused, "siloed vs fused full-width run")
-    summary = run_summary(res, counts, peak)
-    summary["gemm_shapes"] = gemm_table(ck, shapes, FULL_ITERS)
-    log_gemm_table("siloed", summary["gemm_shapes"])
-    no_tiled_gemm(summary["gemm_shapes"])
-    set_schedule("0")                      # the siloed run's driver
-    proto = api.protocols.driver(api.get_workload(FULL_WORKLOAD),
-                                 ck.torch.device("cuda"))
-    set_schedule("1")
-    assert proto.fused_mode == "0"
-    summary["profiled_steps"], summary["profile"] = profile_steps(
-        ck.torch, proto.iteration, res.state)
-    del calls, x, w, co
-    res.state = None
-    # host time per step varies from fit to fit: the two schedules in turns
-    turns = []
-    for mode in ("1", "0", "0", "1"):
-        r, _, _, _ = fit_full(ck, mode)
-        turns.append(dict(schedule=mode, setup_s=r.timings["setup_s"],
-                          ms_per_iter=r.timings["iters_s"] / r.iters * 1e3))
-        same_model(np, r, fused, f"turn on schedule {mode}")
-    summary["turns"] = turns
-    log(f"siloed: {res.workload} setup {summary['setup_s']:.3f} s, "
-        f"{summary['ms_per_iter']:.3f} ms/iter, peak "
-        f"{summary['peak_gib']:.2f} GiB, accuracy {res.final_accuracy:.4f} "
-        f"(equal to the fused run's), launches {counts}")
-    log(f"siloed: profiled steps {summary['profiled_steps']}")
-    log("siloed: ms/iter in turns " + ", ".join(
-        f"{t['schedule']}: {t['ms_per_iter']:.3f}" for t in turns))
-
-    mres, mcounts, mcalls, mpeak = fit_full(
-        ck, "0", record=("coded_gradient_matrix",), workload="mnist10_like")
-    assert mcounts["coded_gradient_matrix"] == FULL_ITERS, mcounts
-    x, w, co = mcalls["coded_gradient_matrix"][-1][0]
-    ck.compare("coded_gradient_matrix", cg.coded_gradient_matrix(x, w, co),
-               ref.coded_gradient_matrix(x.cpu(), w.cpu(), co.cpu()),
-               "mnist10_like siloed last step")
-    msummary = run_summary(mres, mcounts, mpeak)
-    log(f"siloed: mnist10_like {msummary['ms_per_iter']:.3f} ms/iter, "
-        f"accuracy {mres.final_accuracy:.4f}, launches {mcounts}")
-    path_counts = dict(counts)
-    path_counts["coded_gradient_matrix"] = mcounts["coded_gradient_matrix"]
-    return path_counts, {res.workload: summary, "mnist10_like": msummary}
-
-
 def phase_faulty(ck: Checker, np, fused) -> dict:
-    """cifar10_case2 at full width under a fault plan on both schedules:
-    a straggler at step 1 and an adversary from step 3, which leaves
-    exactly R = 49 of the 50 clients available."""
+    """cifar10_case2 at full width under a fault plan: a straggler at
+    step 1 and an adversary from step 3, which leaves exactly R = 49 of the
+    50 clients available."""
     from repro_torch.launch.launch_counter import LaunchLog
     from repro_torch import api
     wl = api.get_workload(FULL_WORKLOAD)
@@ -3128,30 +3028,23 @@ def phase_faulty(ck: Checker, np, fused) -> dict:
                                        adversaries={3: (7,)})
     headroom = plan.validate(api.fault_threshold(wl))
     log(f"faulty: {plan.describe()}, headroom per step {headroom.tolist()}")
-    out = {}
-    for mode in ("1", "0"):
-        shapes = LaunchLog()
-        res, counts, calls, peak = fit_full(
-            ck, mode, record=("fused_step",), faults=plan, shape_log=shapes)
-        same_model(np, res, fused, f"faulty (schedule {mode}) vs fault-free")
-        if mode == "1":
-            offsets = [args[3].cpu() for args, _ in calls["fused_step"]]
-            assert len(offsets) == FULL_ITERS
-            for step, off in enumerate(offsets):
-                hit = (off != 0).nonzero().flatten().tolist()
-                assert hit == ([7] if step >= 3 else []), (step, hit)
-        else:
-            assert counts["coded_gradient_batched"] == FULL_ITERS, counts
-        res.state = None
-        del calls
-        out[f"schedule {mode}"] = run_summary(res, counts, peak)
-        gemms = gemm_table(ck, shapes, FULL_ITERS)
-        log_gemm_table(f"faulty {mode}", gemms)
-        no_tiled_gemm(gemms)
-        out[f"schedule {mode}"]["gemm_shapes"] = gemms
-        log(f"faulty: schedule {mode}: weights and history equal the "
-            f"fault-free run's; {out[f'schedule {mode}']['ms_per_iter']:.3f} "
-            f"ms/iter, launches {counts}")
+    shapes = LaunchLog()
+    res, counts, calls, peak = fit_full(
+        ck, record=("fused_step",), faults=plan, shape_log=shapes)
+    same_model(np, res, fused, "faulty vs fault-free")
+    offsets = [args[3].cpu() for args, _ in calls["fused_step"]]
+    assert len(offsets) == FULL_ITERS
+    for step, off in enumerate(offsets):
+        hit = (off != 0).nonzero().flatten().tolist()
+        assert hit == ([7] if step >= 3 else []), (step, hit)
+    res.state = None
+    del calls
+    out = run_summary(res, counts, peak)
+    out["gemm_shapes"] = gemms = gemm_table(ck, shapes, FULL_ITERS)
+    log_gemm_table("faulty", gemms)
+    no_tiled_gemm(gemms)
+    log(f"faulty: weights and history equal the fault-free run's; "
+        f"{out['ms_per_iter']:.3f} ms/iter, launches {counts}")
     return out
 
 
@@ -3433,17 +3326,16 @@ def profile_top(step, state, top: int = 8) -> dict:
 
 def phase_wide(ck: Checker, np) -> tuple:
     """The coded gradient past d = 58,004: its kernels at the full shape,
-    then api.fit of the wide workloads (d = 65,536) on the card, fused,
-    siloed (the cluster route), ten-class siloed and ten-class fused (the
-    wide route; FULL_ITERS each) and sharded:4 (WIDE_SHARDED_ITERS, against
-    jit), each schedule's pair bit-equal, the last steps re-checked, two
-    fused steps and two ten-class siloed steps profiled, and the fused
-    result served at WIDE_SERVE_BATCH (the split-K GEMM at K = 65,536).
-    Returns (the kernels-line rows, summary, launch counts by run)."""
+    then api.fit of the wide workloads (d = 65,536) on the card, binary
+    (the cluster route) and ten-class (the wide route; FULL_ITERS each),
+    and sharded:4 (WIDE_SHARDED_ITERS, against jit), the last steps
+    re-checked, two binary and two ten-class steps profiled, and the
+    binary result served at WIDE_SERVE_BATCH (the split-K GEMM at
+    K = 65,536).  Returns (the kernels-line rows, summary, launch counts by
+    run)."""
     torch = ck.torch
     from repro_torch import api
     from repro_torch.core import meshutil
-    from repro_torch.kernels import coded_gradient as cg
     from repro_torch.kernels import fused_step as fs
     from repro_torch.kernels import ops, plan, ref
     from repro_torch.serve import coded
@@ -3459,7 +3351,7 @@ def phase_wide(ck: Checker, np) -> tuple:
         f"{dict(ck.checks)}")
 
     # (a) fused, with the last step's operands re-checked
-    res, counts, calls, peak = fit_full(ck, "1", record=("fused_step",),
+    res, counts, calls, peak = fit_full(ck, record=("fused_step",),
                                         workload=WIDE_NAME)
     args, kw = calls["fused_step"][-1]
     assert tuple(args[0].shape) == (wl.n_clients, mk, wl.d), args[0].shape
@@ -3473,7 +3365,6 @@ def phase_wide(ck: Checker, np) -> tuple:
     assert weights.shape == (wl.d,) and np.isfinite(weights).all()
     summary = {"fused": run_summary(res, counts, peak)}
     proto = api.protocols.driver(wl, torch.device("cuda"))
-    assert proto.fused_mode == "1"
     summary["fused"]["profiled_steps"], summary["fused"]["profile"] = \
         profile_steps(torch, proto.iteration, res.state)
     log(f"wide: {WIDE_NAME} fused N={wl.n_clients} m={wl.m} d={wl.d} setup "
@@ -3511,65 +3402,36 @@ def phase_wide(ck: Checker, np) -> tuple:
         f"{serve_counts}")
     del srv, xb
 
-    # (c) siloed, equal to the fused run
-    sres, scounts, scalls, speak = fit_full(
-        ck, "0", record=("coded_gradient_batched",), workload=WIDE_NAME)
-    x, w, co = scalls["coded_gradient_batched"][-1][0]
-    ck.compare("coded_gradient_batched", cg.coded_gradient_batched(x, w, co),
-               ref.coded_gradient_batched(x, w, co),
-               f"{WIDE_NAME} siloed last step")
-    del scalls, x, w, co
-    same_model(np, sres, res, "wide siloed vs fused")
-    np.testing.assert_array_equal(sres.state.w_shares.cpu().numpy(),
-                                  res.state.w_shares.cpu().numpy())
-    wide_counts_ok(scounts, FULL_ITERS, False, route, "siloed")
-    summary["siloed"] = run_summary(sres, scounts, speak)
-    log(f"wide: siloed {summary['siloed']['ms_per_iter']:.3f} ms/iter, "
-        f"bit-equal to the fused run; launches {scounts}")
-    res.state = sres.state = None
+    res.state = None
     torch.cuda.empty_cache()
 
-    # (d) ten classes, siloed, with two more steps profiled
-    mres, mcounts, mcalls, mpeak = fit_full(
-        ck, "0", record=("coded_gradient_matrix",), workload=WIDE10_NAME)
-    x, w, co = mcalls["coded_gradient_matrix"][-1][0]
-    ck.compare("coded_gradient_matrix", cg.coded_gradient_matrix(x, w, co),
-               ref.coded_gradient_matrix(x, w, co),
-               f"{WIDE10_NAME} siloed last step")
-    del mcalls, x, w, co
-    wide_counts_ok(mcounts, FULL_ITERS, False, route10, "ten-class siloed")
-    mw = np.asarray(mres.weights)
-    assert mw.shape == (wl.d, 10) and np.isfinite(mw).all()
-    summary["siloed C=10"] = run_summary(mres, mcounts, mpeak)
-    set_schedule("0")
-    try:
-        proto10 = api.protocols.driver(wl10, torch.device("cuda"))
-        assert proto10.fused_mode == "0"
-        summary["siloed C=10"]["profile"] = profile_top(proto10.iteration,
-                                                        mres.state)
-    finally:
-        set_schedule("1")
-    log(f"wide: {WIDE10_NAME} siloed "
-        f"{summary['siloed C=10']['ms_per_iter']:.3f} ms/iter, peak "
-        f"{summary['siloed C=10']['peak_gib']:.2f} GiB, accuracy "
-        f"{mres.final_accuracy:.4f}; launches {mcounts}")
-    log(f"wide: {WIDE10_NAME} siloed, two steps profiled: "
-        f"{summary['siloed C=10']['profile']}")
-    mres.state = None
-    torch.cuda.empty_cache()
-
-    # (e) ten classes, fused (the wide route's epilogue), equal to siloed
-    fres, fcounts, _, fpeak = fit_full(ck, "1", workload=WIDE10_NAME)
-    same_model(np, fres, mres, "wide ten-class fused vs siloed")
+    # (c) ten classes (the wide route's epilogue), with the last step's
+    # operands re-checked and two more steps profiled
+    fres, fcounts, fcalls, fpeak = fit_full(ck, record=("fused_step",),
+                                            workload=WIDE10_NAME)
+    args, kw = fcalls["fused_step"][-1]
+    got = fs.fused_step(*args, **kw)
+    want = ref.fused_step(*args, **kw)
+    for g, w_, part in zip(got, want, ("f", "new_w")):
+        ck.compare("fused_step", g, w_, f"{WIDE10_NAME} last step {part}")
+    del fcalls, args, kw, got, want
     wide_counts_ok(fcounts, FULL_ITERS, True, route10, "ten-class fused")
+    mw = np.asarray(fres.weights)
+    assert mw.shape == (wl.d, 10) and np.isfinite(mw).all()
     summary["fused C=10"] = run_summary(fres, fcounts, fpeak)
+    proto10 = api.protocols.driver(wl10, torch.device("cuda"))
+    summary["fused C=10"]["profile"] = profile_top(proto10.iteration,
+                                                   fres.state)
     log(f"wide: {WIDE10_NAME} fused "
-        f"{summary['fused C=10']['ms_per_iter']:.3f} ms/iter, bit-equal to "
-        f"the siloed run; launches {fcounts}")
+        f"{summary['fused C=10']['ms_per_iter']:.3f} ms/iter, peak "
+        f"{summary['fused C=10']['peak_gib']:.2f} GiB, accuracy "
+        f"{fres.final_accuracy:.4f}; launches {fcounts}")
+    log(f"wide: {WIDE10_NAME} fused, two steps profiled: "
+        f"{summary['fused C=10']['profile']}")
     fres.state = None
     torch.cuda.empty_cache()
 
-    # (f) sharded:4 against jit
+    # (d) sharded:4 against jit
     mesh = meshutil.client_mesh(SHARDED_N, "cuda")
     api.fit("smoke", "copml", mesh, iters=1, history=False, device="cuda")
     jres = api.fit(wl, "copml", "jit", key=0, iters=WIDE_SHARDED_ITERS,
@@ -3587,9 +3449,7 @@ def phase_wide(ck: Checker, np) -> tuple:
     torch.cuda.empty_cache()
     summary["phase_s"] = time.perf_counter() - t_phase
     log(f"wide: phase 14 took {summary['phase_s']:.1f} s")
-    runs = {f"fused {WIDE_NAME}": counts, f"siloed {WIDE_NAME}": scounts,
-            f"siloed {WIDE10_NAME}": mcounts,
-            f"fused {WIDE10_NAME}": fcounts,
+    runs = {f"fused {WIDE_NAME}": counts, f"fused {WIDE10_NAME}": fcounts,
             f"{SHARDED_ENGINE} {WIDE_NAME}": shcounts}
     return rows, summary, runs
 
@@ -3952,7 +3812,6 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
-    set_schedule("1")
     ck = Checker(torch, np, P)
     if args.launch_only:
         launch, _ = phase_launch(ck, np)
@@ -3996,11 +3855,10 @@ def main() -> int:
         finish(torch, smi, kernels)
         return 0
     rows = phase_kernels(ck, args.quick)
-    rows.update(phase_kernels_siloed(ck, args.quick))
+    rows.update(phase_kernels_gradient(ck, args.quick))
     rows.update(phase_kernels_protocols(ck, args.quick))
     proc_rows = phase_kernels_proc(ck, args.quick)
     phase_golden(np)
-    phase_golden_siloed(np)
     phase_golden_protocols(np)
     # launches: each kernel's count from the full-width path that runs it
     # (coded_gradient and poly_eval are on no path of the protocol)
@@ -4010,7 +3868,6 @@ def main() -> int:
     if not args.quick:
         fused_counts, summary, fused = phase_full(ck, np)
         report["full"] = summary
-        siloed_counts, report["siloed"] = phase_siloed(ck, np, fused)
         report["faulty"] = phase_faulty(ck, np, fused)
         report["protocols"], report["protocol_launches"], float_res = \
             phase_protocols(ck, np, summary)
@@ -4032,12 +3889,11 @@ def main() -> int:
         for name in FUSED_PATH:
             counts[name] = fused_counts[name]
             path[name] = "fused cifar10_case2"
-        counts["coded_gradient_batched"] = \
-            siloed_counts["coded_gradient_batched"]
-        path["coded_gradient_batched"] = "siloed cifar10_case2"
-        counts["coded_gradient_matrix"] = \
-            siloed_counts["coded_gradient_matrix"]
-        path["coded_gradient_matrix"] = "siloed mnist10_like"
+        # the coded-gradient kernels: Phase 3 of the proc workers
+        for name, wl_ in (("coded_gradient_batched", FULL_WORKLOAD),
+                          ("coded_gradient_matrix", "mnist10_like")):
+            path[name] = f"{PROC_ENGINE} {wl_}"
+            counts[name] = proc_runs[path[name]][name]
         for name in ("modmatmul", "modmatmul_batched"):
             by_path[name] = {
                 "fused cifar10_case2": fused_counts[name],

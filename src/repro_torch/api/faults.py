@@ -5,10 +5,10 @@ contributions.  A `FaultPlan` turns that from a single static `subset=`
 into a schedule: for every training step it says which clients straggle
 (miss the round), which have permanently dropped out, and which contribute
 adversarially corrupted values.  `api.fit(workload, "copml", engine,
-faults=plan)` replays it on either schedule (REPRO_FUSED_STEP): the plan is
-compiled once into (iters, R) decode-index / decode-row tensors on the
-run's device (one exact Lagrange row per distinct subset) plus the
-(iters, N) adversary mask, and each step takes its row.
+faults=plan)` replays it: the plan is compiled once into (iters, R)
+decode-index / decode-row tensors on the run's device (one exact Lagrange
+row per distinct subset) plus the (iters, N) adversary mask, and each step
+takes its row.
 
 Semantics (enforced in validate()):
 

@@ -5,8 +5,7 @@ Five interchangeable training protocols over the same workloads, the
 paper's Section V comparison as a registry, with the JAX package's names:
 
   copml         Algorithm 1: LCC-coded secret-shared training
-                (core/protocol.Copml), on either schedule
-                (REPRO_FUSED_STEP, read when a workload's driver is built)
+                (core/protocol.Copml), one fused step an iteration,
                 and under fault plans.
   mpc_baseline  the [BGW88]/[BH08] Appendix-D baselines: every multiply
                 is a secure multiplication with degree reduction
@@ -26,8 +25,7 @@ and "jit" the float32 one, as in the JAX package.  copml also runs
 on one torch.distributed group) and "proc[:N]" (launch/runtime: N worker
 processes over localhost sockets, with measured communication).  A run
 uses the CUDA card unless the caller passes device="cpu"; with no card
-and no device it raises.  Drivers are cached per (workload, device[,
-REPRO_FUSED_STEP]).
+and no device it raises.  Drivers are cached per (workload, device).
 """
 
 from __future__ import annotations
@@ -38,7 +36,7 @@ import numpy as np
 
 from ..core import baselines, cost_model, secure_agg
 from ..core import objectives as objectives_mod
-from ..core.protocol import Copml, fused_mode_from_env, resolve_device
+from ..core.protocol import Copml, resolve_device
 from ..launch import runtime
 from ..train import elastic
 from . import engine as engine_mod
@@ -257,9 +255,8 @@ class CopmlProtocol(Protocol):
         self._drivers: dict = {}
 
     def driver(self, wl, device) -> Copml:
-        """The cached Copml for (workload, device, REPRO_FUSED_STEP):
-        flipping the env var between fits selects the other schedule."""
-        key = (wl, str(device), fused_mode_from_env())
+        """The cached Copml for (workload, device)."""
+        key = (wl, str(device))
         if key not in self._drivers:
             self._drivers[key] = Copml(wl.cfg, wl.m, wl.d,
                                        objective=wl.objective, device=device)

@@ -20,7 +20,8 @@ they exist for humans and for the AST analyzer.
   Coded       an LCC-coded slice (Lagrange evaluation of data + mask
               blocks).  Hides the data against any T colluding clients;
               still secret -- decodable only through `lagrange.lcc_decode`
-              or the Phase-4 decode row inside `Copml.decode_and_update`.
+              or the Phase-4 decode row (`Copml._fused_iteration`,
+              `_RankStep.decode_update`).
   SecretRand  dealer/offline randomness (sharing-polynomial coefficients,
               LCC mask blocks, TruncPr pads).  Leaking it breaks the
               hiding argument exactly like leaking a secret.

@@ -2,21 +2,19 @@
 
 One process simulates all N clients; every share tensor carries the client
 axis first.  Per iteration the model is Lagrange-encoded from its shares,
-then Phases 3+4 (coded gradient, decode, secure truncated update) run on
-one of two schedules, chosen by REPRO_FUSED_STEP when a Copml is built:
-
-  "1" (default), "kernel"  fused: one `ops.fused_step` call;
-  "0"                      siloed: `local_gradient` (the coded-gradient
-                           kernels) then `decode_and_update` (share, decode,
-                           TruncPr as separate field ops).
-
-Both give the same bits.  A fault plan's per-step decode subsets and
-adversaries (api/faults.FaultPlan) run on either.
+then Phases 3+4 (coded gradient, decode, secure truncated update) run as
+one `ops.fused_step` call.  A fault plan's per-step decode subsets and
+adversaries (api/faults.FaultPlan) enter that call as its decode row and
+corruption offsets.
 
 The sharded engine (`Copml._train_sharded`) splits the client axis over a
 core/meshutil ClientMesh of D rank processes: each rank holds only its
 clients' shares and coded rows, and the protocol's EXCHANGE and OPEN steps
-are real collectives.  It gives the bits of the in-process engines.
+are real collectives.  Its ranks, like the proc engine's workers
+(launch/runtime/worker), run the siloed Phases 3 and 4: the coded-gradient
+kernels (`Copml.local_gradient`), then share, decode and TruncPr as
+separate field ops (`_RankStep.decode_update`).  It gives the bits of the
+in-process engines.
 
 Fixed-point scale plumbing (paper Appendix A):
 
@@ -33,7 +31,6 @@ bit-identical to the JAX package's on the same key.
 
 from __future__ import annotations
 
-import collections
 import contextlib
 import dataclasses
 import math
@@ -100,19 +97,6 @@ class CopmlConfig:
 # stay visible in the model.
 ADV_OFFSET = 1 << 20
 
-FUSED_MODES = ("0", "1", "kernel")
-
-
-def fused_mode_from_env() -> str:
-    """REPRO_FUSED_STEP: "0" siloed schedule; "1" (default) or "kernel" the
-    fused step (on CUDA both are the fused_step kernel)."""
-    mode = os.environ.get("REPRO_FUSED_STEP", "1")
-    if mode not in FUSED_MODES:
-        raise ValueError(f"REPRO_FUSED_STEP={mode!r}: expected one of "
-                         f"{FUSED_MODES}")
-    return mode
-
-
 def sharded_overlap_from_env() -> bool:
     """REPRO_SHARDED_OVERLAP: "1" (default) streams the sharded step's two
     EXCHANGE collectives around rings; "0" takes the monolithic ones."""
@@ -171,72 +155,53 @@ def state_from_numpy(w_shares, coded_x, xty_shares, step=0,
                       xty_shares=t(xty_shares), step=int(np.asarray(step)))
 
 
-#: set-up's rows, process totals: host-to-device copies of the clients' rows
-#: ("rows_copies", one a non-empty host client on a card), and bytes of
-#: them first copied into a host array of set-up's own ("rows_host_bytes":
-#: a client torch cannot copy where it lies, made contiguous)
-ROWS_COUNTS = collections.Counter(rows_copies=0, rows_host_bytes=0)
-
-
-def counters() -> dict:
-    """The process's counts whose change across a job Copml.train reports
-    as timings["counts"]: ops.gradient_counts and ROWS_COUNTS."""
-    return dict(ops.gradient_counts(), **ROWS_COUNTS)
-
-
-def _client_tensor(x) -> tuple:
-    """(a tensor over one client's rows, host bytes copied to make it): a
-    C-contiguous host array in native byte order is viewed where it lies
-    (torch.from_numpy); any other host array or tensor is first copied
-    into a contiguous one.  A tensor on a card is taken as it is."""
+def _client_tensor(x) -> torch.Tensor:
+    """A tensor over one client's rows: a C-contiguous host array in native
+    byte order is viewed where it lies (torch.from_numpy); any other host
+    array or tensor is first copied into a contiguous one.  A tensor on a
+    card is taken as it is."""
     if isinstance(x, torch.Tensor):
-        if x.device.type != "cpu" or x.is_contiguous():
-            return x, 0
-        x = x.contiguous()
-        return x, x.nbytes
+        if x.device.type != "cpu":
+            return x
+        return x.contiguous()
     a = np.asarray(x)
-    staged = 0
     if not (a.flags.c_contiguous and a.dtype.isnative):
         a = np.ascontiguousarray(a, a.dtype.newbyteorder("="))
-        staged = a.nbytes
     with warnings.catch_warnings():
         # the view is only read
         warnings.filterwarnings("ignore", "The given NumPy array is not "
                                 "writable")
-        return torch.from_numpy(a), staged
+        return torch.from_numpy(a)
 
 
-def stage_rows(client_xs: Sequence, d: int, device) -> tuple:
+def stage_rows(client_xs: Sequence, d: int, device) -> torch.Tensor:
     """The clients' (m_j, d) rows as one float32 (m, d) tensor on `device`,
     each client's rows copied from the caller's array straight into its
     row slice: no host array of all the rows is made.  A float32 client is
     one host-to-device copy; any other dtype is copied as it is and cast
     on the device (float64 rounds to the nearest float32, integers and
     float16 are exact), so the rows are np.concatenate's rows cast to
-    float32 for any clients it accepts.  No copy waits for the device.
-    Returns (rows, host-to-device copies, host bytes staged)."""
+    float32 for any clients it accepts.  No copy waits for the device."""
     device = torch.device(device)
-    srcs, staged = [], 0
+    srcs = []
     for j, x in enumerate(client_xs):
-        src, nb = _client_tensor(x)
+        src = _client_tensor(x)
         if src.dim() != 2 or src.shape[1] != d:
             raise ValueError(f"client {j}'s rows have shape "
                              f"{tuple(src.shape)}; expected (m_{j}, {d})")
         srcs.append(src)
-        staged += nb
     rows = torch.empty((sum(s.shape[0] for s in srcs), d),
                        dtype=torch.float32, device=device)
-    copies, lo = 0, 0
+    lo = 0
     for src in srcs:
         hi = lo + src.shape[0]
         if hi > lo:
-            if src.device.type == "cpu" and device.type != "cpu":
-                copies += 1
-                if src.dtype != torch.float32:
-                    src = src.to(device, non_blocking=True)
+            if (src.device.type == "cpu" and device.type != "cpu"
+                    and src.dtype != torch.float32):
+                src = src.to(device, non_blocking=True)
             rows[lo:hi].copy_(src, non_blocking=True)
         lo = hi
-    return rows, copies, staged
+    return rows
 
 
 def resolve_device(device=None) -> torch.device:
@@ -276,7 +241,6 @@ class Copml:
         self.q_eta, self.e, self.k1, self.k2 = self.obj.update_constants(
             cfg, m)
         self.poly_coeffs = self.obj.field_coeffs(cfg)       # host int32
-        self.fused_mode = fused_mode_from_env()
         self._mul = mpc.mul_bh08 if cfg.mpc_mul == "bh08" else mpc.mul_bgw
         dev = self.device
         self._coeffs = torch.from_numpy(self.poly_coeffs).to(dev)
@@ -351,9 +315,8 @@ class Copml:
         """Phase 1 (LOCAL): the clients' rows and targets quantized into F_p
         on the device, (xq (m, d), yq (m,) + out_shape).  The rows reach
         the device through stage_rows, one copy a client into one buffer,
-        and are quantized there at once; ROWS_COUNTS counts the copies."""
-        rows, copies, staged = stage_rows(client_xs, self.d, self.device)
-        ROWS_COUNTS.update(rows_copies=copies, rows_host_bytes=staged)
+        and are quantized there at once."""
+        rows = stage_rows(client_xs, self.d, self.device)
         xq = quantize.quantize(rows, self.cfg.lx, self.device)
         del rows
         targets = self.obj.prepare_targets(
@@ -391,41 +354,6 @@ class Copml:
             return ops.coded_gradient_batched(coded_x, coded_w, self._coeffs)
         w_mat = coded_w.reshape(coded_w.shape[0], self.d, self.obj.n_outputs)
         return ops.coded_gradient_matrix(coded_x, w_mat, self._coeffs)
-
-    def decode_and_update(self, key, state: CopmlState, f_values: Coded,
-                          subset: Sequence[int] | None = None, *,
-                          subset_idx=None, dvec=None) -> CopmlState:
-        """Phase 4: share f, decode on shares, secure model update.
-
-        The decode subset is a static `subset` tuple, or `subset_idx` (R,)
-        int64 indices on the device with the matching `dvec` (R,) decode
-        row (a fault plan's per-step form)."""
-        cfg, n = self.cfg, self.cfg.n_clients
-        kf, kt = jrandom.split(key)
-        if subset_idx is None:
-            subset_idx, dvec, _ = self._decode_row(subset)
-        else:
-            assert dvec is not None, "subset_idx needs its decode row dvec"
-
-        # EXCHANGE: each client shares its local result; the owner<->holder
-        # swap is a view of the (holder, owner) share tensor
-        f_shares = shamir.share_batch(kf, f_values, cfg.t, n,
-                                      self.lambdas)  # (N_owner, N_holder, ..)
-        per_holder = f_shares.transpose(0, 1).reshape(n, n, self.dw)
-        # each holder decodes from its R rows: the sum over the K decode
-        # rows folded into one (R,) row, one batched GEMM for all holders
-        evals = per_holder.index_select(1, subset_idx)      # (N_h, R, dw)
-        r = evals.shape[1]
-        xtg = ops.modmatmul_batched(dvec[None, None].expand(n, 1, r), evals)
-        xtg_shares = xtg.reshape((n,) + self.w_shape)
-
-        # LOCAL: gradient shares; then secure update with TruncPr
-        grad_shares = field.sub(xtg_shares, state.xty_shares)
-        scaled = field.mul_scalar(grad_shares, self.q_eta)
-        delta_shares = truncation.trunc_pr(
-            kt, scaled, self.k1, self.k2, cfg.t, self.lambdas)  # scale lw
-        new_w = field.sub(state.w_shares, delta_shares)
-        return dataclasses.replace(state, w_shares=new_w, step=state.step + 1)
 
     def _decode_vec(self, subset) -> Public:
         """Host-side (R,) decode row: sum_k D[k, :] over the K decode-matrix
@@ -497,22 +425,13 @@ class Copml:
     def iteration(self, key, state: CopmlState,
                   subset: Sequence[int] | None = None, *,
                   subset_idx=None, dvec=None, adv=None) -> CopmlState:
+        """One GD iteration: encode the model, then the fused Phases 3+4."""
         k1_, k2_ = jrandom.split(key)
         with obs.span("step.encode"):
             coded_w = self.encode_model(k1_, state.w_shares)
-        if self.fused_mode != "0":
-            return self._fused_iteration(k2_, state, coded_w, subset,
-                                         subset_idx=subset_idx, dvec=dvec,
-                                         adv=adv)
-        f_values = self.local_gradient(state.coded_x, coded_w)
-        if adv is not None:
-            # adversarial clients contribute a CORRUPTED coded gradient; the
-            # fault plan keeps them out of subset_idx
-            adv_b = adv.reshape((adv.shape[0],) + (1,) * len(self.w_shape))
-            f_values = torch.where(adv_b, field.add(f_values, ADV_OFFSET),
-                                   f_values)
-        return self.decode_and_update(k2_, state, f_values, subset,
-                                      subset_idx=subset_idx, dvec=dvec)
+        return self._fused_iteration(k2_, state, coded_w, subset,
+                                     subset_idx=subset_idx, dvec=dvec,
+                                     adv=adv)
 
     # ------------------------------------------------------ fault schedules
 
@@ -565,14 +484,13 @@ class Copml:
         of the setup and of the iteration loop, each ending in a device
         synchronise; spans: the run's obs spans (setup.*, train.step and
         the phases inside it), path -> [count, host seconds]; and counts:
-        this run's coded-gradient launches by route (ops.gradient_counts)
-        and set-up's row copies and staged host bytes (ROWS_COUNTS), the
-        difference across the run of the process's counters.
+        this run's coded-gradient launches by route (ops.gradient_counts),
+        the difference across the run of the process's counters.
         `callback(t, w)`, when given, receives the opened model after step
         t.  Returns (state, w, history (iters,) + w_shape or None)."""
         subset = None if subset is None else tuple(subset)
         iters = int(iters)
-        counts0 = counters()
+        counts0 = ops.gradient_counts()
         rec = obs.Recorder()
         with rec if timings is not None else contextlib.nullcontext():
             faults = self._fault_xs(step_subsets, adversaries, iters, subset)
@@ -599,7 +517,8 @@ class Copml:
                             callback(t, w_t)
             t2 = self._sync()
         if timings is not None:
-            counts = {k: v - counts0[k] for k, v in counters().items()}
+            counts = {k: v - counts0[k]
+                      for k, v in ops.gradient_counts().items()}
             timings.update(setup_s=t1 - t0, iters_s=t2 - t1, spans=rec.spans,
                            counts=counts)
         w = self.open_model(state)

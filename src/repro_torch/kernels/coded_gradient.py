@@ -3,7 +3,7 @@
 Replaces the TPU kernels `coded_gradient` (:120), `coded_gradient_matrix`
 (:183) and `coded_gradient_batched` (:215) of
 src/repro/kernels/coded_gradient.py: f[n] = X~[n]^T ghat(X~[n] W~[n]), the
-COPML hot loop of the siloed schedule.  The TPU walks a sequential
+Phase 3 of the sharded ranks and proc workers.  The TPU walks a sequential
 (client, row block) grid and revisits the output block in VMEM; Hopper
 blocks run in parallel, so the gradient kernel (csrc/coded_gradient.cuh,
 the same body the fused step runs) is persistent: each CTA walks a strip

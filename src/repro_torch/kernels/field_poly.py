@@ -12,7 +12,8 @@ any shape goes in unpadded.
 Bound on an H100: 8 bytes per element (read z, write the result) over
 3.35 TB/s: 0.160 ms at 2^26 elements, ~0.11 us per 45,100 (the z of one
 cifar10_case2 step), where a launch costs more than the bytes -- which is
-why the siloed and fused schedules inline Horner into the gradient kernel.
+why the coded-gradient kernels and the fused step inline Horner into the
+gradient kernel.
 """
 
 from __future__ import annotations

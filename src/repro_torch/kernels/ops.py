@@ -123,7 +123,8 @@ def coded_gradient(x, w, coeffs):
 
 def coded_gradient_batched(x, w, coeffs):
     """f[n] = x[n]^T ghat(x[n] w[n]) for every client; x (N, m, d),
-    w (N, d): the siloed schedule's Phase 3 for a vector model."""
+    w (N, d): the sharded ranks' and proc workers' Phase 3 for a vector
+    model."""
     if x.device.type == "cpu":
         return ref.coded_gradient_batched(x, w, coeffs)
     out = _cg.coded_gradient_batched(x, w, coeffs)

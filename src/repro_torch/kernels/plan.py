@@ -412,7 +412,8 @@ def max_d(c: int = 1) -> int:
 
 def gradient_route(d: int, c: int) -> str:
     """How the card computes f[n] = X~[n]^T ghat(X~[n] W~[n]) for X~
-    (N, m, d) and a (d, C) model, in the siloed and the fused schedule:
+    (N, m, d) and a (d, C) model, in the coded-gradient kernels and the
+    fused step:
 
     "body"     the gradient kernel (csrc/coded_gradient.cuh), which reads
                X~ once, wherever gradient_plan fits one row of X~ in a

@@ -17,8 +17,8 @@ linear reduction.  The decode subset may differ per step (whichever
 owners' blocks arrive before the deadline); LCC decoding is exact
 polynomial interpolation, so any R-subset yields identical values.
 
-Phase 3 is always the siloed coded-gradient kernel (`Copml.local_gradient`);
-REPRO_FUSED_STEP does not apply here.  Every field GEMM of the loop is
+Phase 3 is the siloed coded-gradient kernel (`Copml.local_gradient`) and
+Phase 4 separate field ops.  Every field GEMM of the loop is
 counted by shapes and strides (`step_gemms` lists what one step makes) and
 reported with the kernels' launch counts in the RESULT frame.
 

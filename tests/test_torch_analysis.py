@@ -212,14 +212,15 @@ def _analyze_corrupted(tmp_path, source):
     return _run_cli("--package", "repro_torch.core", str(path))
 
 
-_DECODE_ANCHOR = "        xtg_shares = xtg.reshape((n,) + self.w_shape)\n"
+_DECODE_ANCHOR = "        mat = (n, self.d, self.obj.n_outputs)\n"
 
 
 @pytest.mark.parametrize("leak", [
-    "print(state.w_shares)", "leak = xtg_shares.cpu().numpy()",
+    "print(state.w_shares)", "leak = mix.cpu().numpy()",
     "leak = state.w_shares.tolist()"])
 def test_corrupted_protocol_share_leak_is_flagged(tmp_path, leak):
-    """Opening shares on the host inside decode_and_update -> SEC001."""
+    """Opening shares on the host inside the fused iteration, before its
+    decode -> SEC001."""
     src = _protocol_source()
     assert _DECODE_ANCHOR in src, "protocol.py changed; update the drill"
     bad = src.replace(_DECODE_ANCHOR,

@@ -47,9 +47,7 @@ class _Routes:
         return call
 
 
-@pytest.mark.parametrize("fused", ["1", "0"])
-def test_copml_gemms_keep_the_thin_and_colsum_paths(monkeypatch, fused):
-    monkeypatch.setenv("REPRO_FUSED_STEP", fused)
+def test_copml_gemms_keep_the_thin_and_colsum_paths(monkeypatch):
     routes = _Routes(monkeypatch)
     api.fit("cifar10_like", "copml", "jit", iters=2, history=False,
             device="cpu")

@@ -143,19 +143,7 @@ def test_poly_eval_grid_stride_and_edges(cuda, length, degree, offset, worst):
     _eq(fp.poly_eval(z, co.to(cuda)), ref.poly_eval(flat[offset:], co))
 
 
-def test_fit_siloed_golden_on_the_card(cuda, monkeypatch):
-    monkeypatch.setenv("REPRO_FUSED_STEP", "0")
-    ops.reset_launches()
-    res = api.fit("smoke", "copml", "jit", key=0, iters=10)
-    assert _sha(res.state.w_shares.cpu().numpy()) == GOLDEN_SHARES_SHA
-    counts = ops.launch_counts()
-    assert counts["coded_gradient_batched"] == 10
-    assert counts["fused_step"] == 0
-
-
-@pytest.mark.parametrize("mode", ["0", "1"])
-def test_faulty_fit_on_the_card(cuda, monkeypatch, mode):
-    monkeypatch.setenv("REPRO_FUSED_STEP", mode)
+def test_faulty_fit_on_the_card(cuda):
     plan = api.FaultPlan.from_schedule(
         13, 6, stragglers={1: (0, 1), 4: (2,)}, dropouts={2: (7,)},
         adversaries={3: (8,)})

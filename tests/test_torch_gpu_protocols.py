@@ -304,6 +304,28 @@ def _concatenated_rows(proto, client_xs, client_ys):
     return xq, yq
 
 
+def _spy_row_copies(mp) -> dict:
+    """The source device of every Tensor.copy_ (set-up's one copy a client
+    into its buffer on the card) under "copies", and under "joined" the
+    np.concatenate calls given 2-D arrays (a host array of all the
+    rows), while `mp` holds."""
+    seen = {"copies": [], "joined": 0}
+    copy_, concatenate = torch.Tensor.copy_, np.concatenate
+
+    def spy_copy(dst, src, *a, **kw):
+        seen["copies"].append(src.device.type)
+        return copy_(dst, src, *a, **kw)
+
+    def spy_concatenate(arrays, *a, **kw):
+        arrays = list(arrays)
+        seen["joined"] += any(np.ndim(x) == 2 for x in arrays)
+        return concatenate(arrays, *a, **kw)
+
+    mp.setattr(torch.Tensor, "copy_", spy_copy)
+    mp.setattr(np, "concatenate", spy_concatenate)
+    return seen
+
+
 @pytest.mark.parametrize("mixed", [False, True])
 def test_setup_rows_on_the_card_equal_the_concatenated_rows(cuda,
                                                             monkeypatch,
@@ -311,8 +333,10 @@ def test_setup_rows_on_the_card_equal_the_concatenated_rows(cuda,
     """cifar10_case2's shape (m = 9,019, d = 3,073, N = 50, K = 10, T = 7),
     each client's rows copied straight into one buffer on the card: the
     field elements and the CopmlState equal those of the rows concatenated
-    on the host, and a job counts one copy a client and no host bytes
-    staged.  `mixed`: every third client float64, every third int8."""
+    on the host, and a job copies each client's rows once, from the host
+    for a float32 client and on the card after its host-to-device copy
+    otherwise, with no host array of all the rows.  `mixed`: every third
+    client float64, every third int8."""
     m, d, n = 9019, 3073, 50
     rng = np.random.default_rng(29)
     x = np.clip(rng.normal(0.0, 0.5, (m, d)), -1.0, 1.0)
@@ -340,7 +364,10 @@ def test_setup_rows_on_the_card_equal_the_concatenated_rows(cuda,
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     del got, want
     timings = {}
-    proto.train(3, cx, cy, 1, timings=timings)
-    assert timings["counts"]["rows_copies"] == n
-    assert timings["counts"]["rows_host_bytes"] == 0
+    with monkeypatch.context() as mp:
+        seen = _spy_row_copies(mp)
+        proto.train(3, cx, cy, 1, timings=timings)
+    f32 = sum(x.dtype == np.float32 for x in cx)
+    assert sorted(seen["copies"]) == ["cpu"] * f32 + ["cuda"] * (n - f32)
+    assert seen["joined"] == 0
     assert timings["spans"]["setup.rows"][0] == 1

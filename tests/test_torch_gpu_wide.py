@@ -186,17 +186,14 @@ def _wide_workload():
                                iters=2)
 
 
-@pytest.mark.parametrize("schedule", ["1", "0"])
-def test_wide_fit_on_the_card_equals_the_cpu(cuda, monkeypatch, schedule):
+def test_wide_fit_on_the_card_equals_the_cpu(cuda):
     """quickstart's configuration at d = 65,536: the card's fit (the
-    cluster route on either schedule) gives the CPU's bits."""
+    fused step on the cluster route) gives the CPU's bits."""
     wl = _wide_workload()
-    monkeypatch.setenv("REPRO_FUSED_STEP", schedule)
     want = api.fit(wl, "copml", "jit", key=0, iters=2, device="cpu")
     ops.reset_launches()
     got = api.fit(wl, "copml", "jit", key=0, iters=2)
-    name = "fused_step" if schedule == "1" else "coded_gradient_batched"
-    assert ops.launch_counts()[name] == 0
+    assert ops.launch_counts()["fused_step"] == 0
     assert ops.wide_counts() == _counts(cluster=2)
     _eq(got.state.w_shares, want.state.w_shares)
     np.testing.assert_array_equal(got.history, want.history)

@@ -338,18 +338,15 @@ def test_train_prints_the_fit_summary():
         _without_time(res.summary())
 
 
-@pytest.mark.parametrize("mode,kernel", [("1", "fused_step"),
-                                         ("0", "coded_gradient_batched")])
-def test_launch_counter_on_cpu_steps(monkeypatch, mode, kernel):
-    monkeypatch.setenv("REPRO_FUSED_STEP", mode)
+def test_launch_counter_on_cpu_steps():
     wl = api.get_workload("smoke")
     with launch_counter.LaunchLog() as log:
         res = api.fit(wl, "copml", "jit", iters=1, device="cpu")
     assert log.counts("setup")["modmatmul"] > 0
-    assert log.counts("step")[kernel] == 1
+    assert log.counts("step")["fused_step"] == 1
     proto = api.protocols.driver(wl, torch.device("cpu"))
     cnt = launch_counter.count_steps(proto.iteration, res.state, 2)
-    assert cnt["launches"][kernel] == 1
+    assert cnt["launches"]["fused_step"] == 1
     assert cnt["launches"]["modmatmul_batched"] >= 1
     o, b = launch_counter.work(cnt["rows"])
     assert (cnt["ops"], cnt["bytes"]) == (o / 2, b / 2) and o > 0

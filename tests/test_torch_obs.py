@@ -19,6 +19,8 @@ import torch
 from repro_torch import api, obs
 from repro_torch.api import workloads
 from repro_torch.core import protocol
+from repro_torch.kernels import ops
+from test_torch_protocol import row_copies
 
 #: the ranges the benchmark opens itself (bench/systems, bench/drivers):
 #: a program span of one of these names would add to their counts
@@ -127,15 +129,18 @@ def test_spans_leave_the_bits_as_they_were(profiled):
 
 
 def test_setup_rows_opens_once_a_job_and_counts_its_copies():
-    """Each job's timings hold setup.rows once and set-up's two row counts:
-    no copy to a card and no host bytes staged, on the CPU."""
+    """Each job's timings hold setup.rows once, and each job copies every
+    client's rows once, with no host array of all the rows; the job's
+    counts hold only the coded gradients by route."""
     _, proto, cx, cy = _smoke_copml()
     for key in (1, 2):
         timings = {}
-        proto.train(key, cx, cy, 2, timings=timings)
+        with row_copies() as seen:
+            proto.train(key, cx, cy, 2, timings=timings)
         assert timings["spans"]["setup.rows"][0] == 1
-        counts = timings["counts"]
-        assert counts["rows_copies"] == counts["rows_host_bytes"] == 0
+        assert seen["copies"] == ["cpu"] * len(cx)
+        assert seen["joined"] == 0
+        assert set(timings["counts"]) == set(ops.gradient_counts())
 
 
 def test_serving_window_spans():

@@ -8,6 +8,7 @@ history shas below, produced by the JAX package under
 `jax.threefry_partitionable(False)` (chip_smoke.py pins the same values).
 """
 
+import contextlib
 import hashlib
 
 import jax
@@ -122,13 +123,37 @@ def _client_rows(kind, x, n):
     return [torch.from_numpy(f32[i]) for i in parts]
 
 
+@contextlib.contextmanager
+def row_copies():
+    """Spies on set-up's rows while open: the source device of every
+    Tensor.copy_ (set-up's one copy a client into its buffer) under
+    "copies", and under "joined" the np.concatenate calls given 2-D
+    arrays (a host array of all the rows)."""
+    seen = {"copies": [], "joined": 0}
+    copy_, concatenate = torch.Tensor.copy_, np.concatenate
+
+    def spy_copy(dst, src, *a, **kw):
+        seen["copies"].append(src.device.type)
+        return copy_(dst, src, *a, **kw)
+
+    def spy_concatenate(arrays, *a, **kw):
+        arrays = list(arrays)
+        seen["joined"] += any(np.ndim(x) == 2 for x in arrays)
+        return concatenate(arrays, *a, **kw)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.Tensor, "copy_", spy_copy)
+        mp.setattr(np, "concatenate", spy_concatenate)
+        yield seen
+
+
 @pytest.mark.parametrize("kind", ["split", "empty", "float64", "int8",
                                   "mixed", "tensor"])
 def test_setup_rows_equal_the_concatenated_rows(monkeypatch, kind):
     """setup.rows stages each client's rows straight into one buffer: its
     field elements equal those of the clients' rows concatenated on the
-    host and quantized, and so does the whole CopmlState, with no host
-    bytes staged and no copy to a card counted on the CPU."""
+    host and quantized, and so does the whole CopmlState, with one copy
+    from each non-empty client and no host array of all the rows."""
     wl = workloads.get("smoke")
     cx, cy = wl.client_data()
     x = np.concatenate(cx).astype(np.float64) * 1.37
@@ -139,9 +164,10 @@ def test_setup_rows_equal_the_concatenated_rows(monkeypatch, kind):
         cy = [y[:0]] + cy[:-1] + [y[:0], cy[-1]]
     proto = protocol.Copml(wl.cfg, wl.m, wl.d, objective=wl.objective,
                            device="cpu")
-    before = dict(protocol.ROWS_COUNTS)
-    xq, yq = proto.quantize_rows(cx, cy)
-    assert dict(protocol.ROWS_COUNTS) == before
+    with row_copies() as seen:
+        xq, yq = proto.quantize_rows(cx, cy)
+    assert seen["copies"] == ["cpu"] * sum(len(x) > 0 for x in cx)
+    assert seen["joined"] == 0
     want_x, want_y = _concatenated_rows(proto, cx, cy)
     assert xq.dtype == want_x.dtype == torch.int32
     assert torch.equal(xq, want_x) and torch.equal(yq, want_y)
@@ -258,12 +284,13 @@ def test_cpu_data_matches_jax_builders():
     assert torch.get_default_dtype() == torch.float32
 
 
-# ------------------------------------------- the siloed schedule and faults
+# --------------------------- the JAX package's siloed Phases 3+4, and faults
 
 # smoke_straggler (N=13, K=3, T=1, R=10) under tests/test_faults.py's plan:
 # stragglers, a dropout and an adversary, min availability exactly R.
 # The shas are the JAX package's run_copml_engine(..., "jit", PRNGKey(0),
-# iters=6) with that plan, the same on both of its schedules.
+# iters=6) with that plan, the same on both of its schedules (REPRO_FUSED_STEP
+# "0" and "1").
 FAULTY_SHARES_SHA = \
     "239bb5c60a80c270b9417cf6025b80b18ef8a8dcb900ecda07ab9b289593352d"
 FAULTY_HIST_SHA = \
@@ -289,13 +316,12 @@ P = protocol.field.P
 
 
 def _carried_state(name, seed):
-    """(JAX Copml in siloed mode, port Copml, JAX state, port state, coded
-    model) over field-valued arrays of `name`'s shapes."""
+    """(JAX Copml, port Copml, JAX state, port state, coded model) over
+    field-valued arrays of `name`'s shapes."""
     from repro.core.protocol import CopmlState as JState
     import jax.numpy as jnp
     wl = jworkloads.get(name)
     jproto = JCopml(wl.cfg, wl.m, wl.d, objective=wl.objective)
-    jproto.fused_mode = "0"
     tproto = protocol.Copml(wl.cfg, wl.m, wl.d, objective=wl.objective,
                             device="cpu")
     w_sh, cx, xty, coded_w = _random_state(np.random.default_rng(seed),
@@ -316,43 +342,65 @@ def test_local_gradient_matches_jax(name):
         jax.jit(jproto.local_gradient)(jstate.coded_x, jnp.asarray(coded_w)))
 
 
-def test_decode_and_update_matches_jax():
-    """decode_and_update in its static-subset and (subset_idx, dvec) forms,
-    and a siloed iteration with an adversary, each bit-equal to the JAX
-    package's methods on the same state (one jitted JAX program); the
-    port's fused schedule gives the adversary's step the same bits."""
+DECODE_FORMS = ("static", "plan", "adversary")
+
+
+@pytest.fixture(scope="module")
+def siloed_jax_steps():
+    """The JAX package's siloed step on a carried smoke state, in one
+    jitted program: decode_and_update applied to local_gradient of the
+    encoded model, decoding from the LAST R clients as a static subset, as
+    a plan's (subset_idx, dvec), and so with client 0 adversarial."""
     import jax.numpy as jnp
-    jproto, tproto, jstate, tstate, coded_w = _carried_state("smoke", 2)
+    from repro.core import field as jfield
+    from repro.core.protocol import ADV_OFFSET
+    jproto, tproto, jstate, tstate, _ = _carried_state("smoke", 2)
     n, rthr = jproto.cfg.n_clients, jproto.cfg.recovery_threshold
-    sub = tuple(range(n - rthr, n))                  # the LAST R clients
+    sub = tuple(range(n - rthr, n))
+    subsets = [sub, tuple(range(rthr))]
     adv = np.zeros(n, bool)
     adv[0] = True
-    jidx, jdv = jproto.plan_constants([sub, tuple(range(rthr))])
+    jidx, jdv = jproto.plan_constants(subsets)
 
-    def jax_phases(key, st, f):
-        return (jproto.decode_and_update(key, st, f, sub).w_shares,
-                jproto.decode_and_update(key, st, f, subset_idx=jidx[0],
-                                         dvec=jdv[0]).w_shares,
-                jproto.iteration(key, st, subset_idx=jidx[0], dvec=jdv[0],
-                                 adv=jnp.asarray(adv)).w_shares)
+    def siloed(key, st):
+        k1_, k2_ = jax.random.split(key)
+        f = jproto.local_gradient(st.coded_x,
+                                  jproto.encode_model(k1_, st.w_shares))
+        bad = jnp.where(jnp.asarray(adv)[:, None],
+                        jfield.add(f, jnp.asarray(ADV_OFFSET, f.dtype)), f)
+        plan = dict(subset_idx=jidx[0], dvec=jdv[0])
+        return (jproto.decode_and_update(k2_, st, f, sub).w_shares,
+                jproto.decode_and_update(k2_, st, f, **plan).w_shares,
+                jproto.decode_and_update(k2_, st, bad, **plan).w_shares)
 
-    f_t = tproto.local_gradient(tstate.coded_x, torch.from_numpy(coded_w))
     with jax.threefry_partitionable(False):
         key = jax.random.PRNGKey(5)
-        want = jax.jit(jax_phases)(key, jstate, jnp.asarray(f_t.numpy()))
-    tkey = jrandom.as_key(np.asarray(key))
-    tidx, tdv = tproto.plan_constants([sub, tuple(range(rthr))])
-    _eq(tidx, jidx)
-    _eq(tdv, jdv)
-    assert tidx.dtype == torch.int64 and tdv.dtype == torch.int32
-    _eq(tproto.decode_and_update(tkey, tstate, f_t, sub).w_shares, want[0])
-    _eq(tproto.decode_and_update(tkey, tstate, f_t, subset_idx=tidx[0],
-                                 dvec=tdv[0]).w_shares, want[1])
-    for mode in ("0", "1"):
-        tproto.fused_mode = mode
+        want = jax.jit(siloed)(key, jstate)
+    return dict(want=dict(zip(DECODE_FORMS, want)), key=key, sub=sub,
+                subsets=subsets, adv=adv, jidx=jidx, jdv=jdv, tproto=tproto,
+                tstate=tstate)
+
+
+@pytest.mark.parametrize("form", DECODE_FORMS)
+def test_decode_and_update_matches_jax(siloed_jax_steps, form):
+    """The port's fused iteration from a static decode subset, from a
+    plan's (subset_idx, dvec), and so with an adversary, is bit-equal to
+    the JAX package's siloed step on the same state and key."""
+    case = siloed_jax_steps
+    tproto, tstate = case["tproto"], case["tstate"]
+    tkey = jrandom.as_key(np.asarray(case["key"]))
+    if form == "static":
+        got = tproto.iteration(tkey, tstate, case["sub"])
+    else:
+        tidx, tdv = tproto.plan_constants(case["subsets"])
+        _eq(tidx, case["jidx"])
+        _eq(tdv, case["jdv"])
+        assert tidx.dtype == torch.int64 and tdv.dtype == torch.int32
+        adv = torch.from_numpy(case["adv"]) if form == "adversary" else None
         got = tproto.iteration(tkey, tstate, subset_idx=tidx[0], dvec=tdv[0],
-                               adv=torch.from_numpy(adv))
-        _eq(got.w_shares, want[2])
+                               adv=adv)
+    _eq(got.w_shares, case["want"][form])
+    assert got.step == tstate.step + 1
 
 
 def _count_siloed(monkeypatch):
@@ -367,13 +415,22 @@ def _count_siloed(monkeypatch):
     return calls
 
 
-def test_fit_siloed_reproduces_goldens(monkeypatch):
-    """REPRO_FUSED_STEP=0: the siloed schedule gives the fused schedule's
-    (and the JAX package's) goldens."""
-    monkeypatch.setenv("REPRO_FUSED_STEP", "0")
+@pytest.mark.parametrize("env", [None, "0", "1", "kernel", "2"])
+def test_fit_ignores_the_fused_step_env(monkeypatch, env):
+    """REPRO_FUSED_STEP is the JAX package's knob: under any value of it,
+    or none, the port's smoke fit gives the goldens through the one driver
+    cached for (workload, device), and never runs the siloed Phase 3 in
+    process."""
+    from repro_torch.api import protocols as tprotocols
+    wl, cpu = api.get_workload("smoke"), torch.device("cpu")
+    monkeypatch.delenv("REPRO_FUSED_STEP", raising=False)
+    drv = tprotocols.driver(wl, cpu)
+    if env is not None:
+        monkeypatch.setenv("REPRO_FUSED_STEP", env)
     calls = _count_siloed(monkeypatch)
     res = api.fit("smoke", "copml", "jit", key=0, iters=10, device="cpu")
-    assert calls["local_gradient"] == 10
+    assert calls["local_gradient"] == 0
+    assert tprotocols.driver(wl, cpu) is drv
     np.testing.assert_array_equal(np.asarray(res.weights, np.float64),
                                   np.asarray(GOLDEN_W))
     assert _sha(res.state.w_shares.numpy(), np.int32) == GOLDEN_SHARES_SHA
@@ -381,16 +438,14 @@ def test_fit_siloed_reproduces_goldens(monkeypatch):
     assert res.availability is None
 
 
-@pytest.mark.parametrize("mode", ["0", "1"])
-def test_faulty_fit_matches_jax_pins_on_both_schedules(monkeypatch, mode):
+def test_faulty_fit_matches_jax_pins(monkeypatch):
     """The plan's stragglers, dropout and adversary give the JAX package's
     shas, and the same opened model and history as the fault-free run."""
-    monkeypatch.setenv("REPRO_FUSED_STEP", mode)
     calls = _count_siloed(monkeypatch)
     plan = _fault_plan()
     res = api.fit("smoke_straggler", "copml", "eager", key=0, iters=6,
                   faults=plan, device="cpu")
-    assert calls["local_gradient"] == (6 if mode == "0" else 0)
+    assert calls["local_gradient"] == 0
     assert _sha(res.state.w_shares.numpy(), np.int32) == FAULTY_SHARES_SHA
     assert _sha(res.history, np.float32) == FAULTY_HIST_SHA
     np.testing.assert_array_equal(res.availability, plan.available)
@@ -399,19 +454,3 @@ def test_faulty_fit_matches_jax_pins_on_both_schedules(monkeypatch, mode):
                    subset="all", device="cpu")
     _eq(res.weights, free.weights)
     _eq(res.history, free.history)
-
-
-def test_driver_cache_follows_the_schedule_env(monkeypatch):
-    """The driver cache is keyed on REPRO_FUSED_STEP too: flipping it after
-    a workload's first fit selects the other schedule."""
-    from repro_torch.api import protocols as tprotocols
-    wl, cpu = api.get_workload("smoke"), torch.device("cpu")
-    monkeypatch.setenv("REPRO_FUSED_STEP", "1")
-    fused = tprotocols.driver(wl, cpu)
-    monkeypatch.setenv("REPRO_FUSED_STEP", "0")
-    siloed = tprotocols.driver(wl, cpu)
-    assert (fused.fused_mode, siloed.fused_mode) == ("1", "0")
-    assert tprotocols.driver(wl, cpu) is siloed
-    monkeypatch.setenv("REPRO_FUSED_STEP", "2")
-    with pytest.raises(ValueError, match="REPRO_FUSED_STEP"):
-        tprotocols.driver(wl, cpu)

@@ -203,17 +203,15 @@ def wide_jax_fit():
             np.asarray(res.weights))
 
 
-@pytest.mark.parametrize("schedule", ["1", "0"])
-def test_wide_fit_matches_jax(monkeypatch, wide_jax_fit, schedule):
-    """api.fit of the wide workload on the CPU, fused and siloed, equals
-    the JAX package's api.fit bit for bit.  The CPU runs the plain
+def test_wide_fit_matches_jax(wide_jax_fit):
+    """api.fit of the wide workload on the CPU equals the JAX package's
+    api.fit bit for bit.  The CPU runs the plain
     versions (kernels/ref); on the card the same fit takes the cluster
     route (tests/test_torch_gpu_wide.py holds the card's fit to the
     CPU's)."""
     wl = dataclasses.replace(api.get_workload("quickstart"), name=WIDE,
                              m=13, d=65536, iters=2)
     assert plan.gradient_route(wl.d, 1) == "cluster"
-    monkeypatch.setenv("REPRO_FUSED_STEP", schedule)
     got = api.fit(wl, "copml", "jit", key=0, iters=2, device="cpu")
     shares, history, weights = wide_jax_fit
     np.testing.assert_array_equal(got.state.w_shares.numpy(), shares)
