@@ -105,6 +105,8 @@ EFFECTS = {
         "kind": "source", "labels": frozenset({RAND, FIELD, REDUCED})},
     "repro_torch.core.field.host_inv": {"kind": "public"},
     "repro_torch.core.field.host_lagrange_coeffs": {"kind": "public"},
+    "repro_torch.core.field.host_lagrange_parts": {"kind": "public"},
+    "repro_torch.core.field.host_inv_all": {"kind": "public"},
 
     # --- Shamir sharing ----------------------------------------------------
     "repro_torch.core.shamir.share": {
@@ -125,6 +127,8 @@ EFFECTS = {
 
     # --- LCC coding ---------------------------------------------------------
     "repro_torch.core.lagrange.lcc_encode": {
+        "kind": "source", "labels": frozenset({CODED, FIELD, REDUCED})},
+    "repro_torch.core.lagrange._lcc_encode_with": {
         "kind": "source", "labels": frozenset({CODED, FIELD, REDUCED})},
     "repro_torch.core.lagrange.lcc_decode": {"kind": "decode"},
     "repro_torch.core.lagrange.encode_matrix": {"kind": "public"},

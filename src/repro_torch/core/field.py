@@ -104,31 +104,81 @@ def inv(a):
 
 # ---------------------------------------------------------------------------
 # Host-side exact helpers for public constants (evaluation points are
-# public, so Lagrange matrices are computed with Python ints).
+# public, so Lagrange matrices are computed on the host, exactly: int64
+# residues whose pairwise products fit, and Python ints for pow).
 # ---------------------------------------------------------------------------
 
 def host_inv(a: int) -> int:
     return pow(int(a) % P, P - 2, P)
 
 
+def _host_residues(vals) -> np.ndarray:
+    """Public ints of any sign or size -> (len,) int64 residues in [0, p)."""
+    return np.array([int(v) % P for v in vals], dtype=np.int64).reshape(-1)
+
+
+def _host_prod(a: np.ndarray) -> np.ndarray:
+    """prod_l a[..., l] mod p for int64 a in [0, p), by halving the last
+    axis (an odd length's last entry folded into the first; every product
+    of two residues fits int64)."""
+    while a.shape[-1] > 1:
+        h = a.shape[-1] // 2
+        half = a[..., :h] * a[..., h:2 * h] % P
+        if a.shape[-1] % 2:
+            half[..., 0] = half[..., 0] * a[..., -1] % P
+        a = half
+    return a[..., 0] if a.shape[-1] else np.ones(a.shape[:-1], np.int64)
+
+
+def _host_prod_but_one(a: np.ndarray) -> np.ndarray:
+    """out[..., j] = prod_{l != j} a[..., l] mod p for int64 a in [0, p):
+    exclusive prefix times exclusive suffix products, each a doubling scan
+    (log2 n vector steps; every product of two residues fits int64)."""
+    pre, suf = np.ones_like(a), np.ones_like(a)
+    pre[..., 1:], suf[..., :-1] = a[..., :-1], a[..., 1:]
+    s = 1
+    while s < a.shape[-1]:
+        pre[..., s:] = pre[..., s:] * pre[..., :-s] % P
+        suf[..., :-s] = suf[..., :-s] * suf[..., s:] % P
+        s *= 2
+    return pre * suf % P
+
+
+def host_inv_all(a: np.ndarray) -> np.ndarray:
+    """Inverses mod p of int64 residues a (n,), with one pow (batch
+    inversion by prefix products); 0 maps to 0, as host_inv(0) does."""
+    vals = [v or 1 for v in a.tolist()]
+    pre = [1]
+    for v in vals:
+        pre.append(pre[-1] * v % P)
+    inv, out = host_inv(pre[-1]), [0] * len(vals)
+    for j in range(len(vals) - 1, -1, -1):
+        out[j] = inv * pre[j] % P
+        inv = inv * vals[j] % P
+    return np.where(a == 0, 0, np.array(out, dtype=np.int64))
+
+
+def host_lagrange_parts(xs, targets) -> tuple:
+    """The barycentric parts of the Lagrange basis over F_p, int64 in
+    [0, p): num (m, n), num[t, j] = prod_{l != j} (z_t - x_l) (that is
+    l(z_t) / (z_t - x_j) with l(z) = prod_l (z - x_l), with no division,
+    so a target on a node needs no case of its own), and the node weights
+    w (n,), w_j = 1 / prod_{l != j} (x_j - x_l), inverted together.  A
+    zero denominator (a duplicate node) gives w_j = 0, as host_inv(0)
+    does.  L[t, j] = num[t, j] * w_j mod p."""
+    xs, ts = _host_residues(xs), _host_residues(targets)
+    num = _host_prod_but_one((ts[:, None] - xs[None, :]) % P)
+    diff = (xs[:, None] - xs[None, :]) % P
+    np.fill_diagonal(diff, 1)
+    return num, host_inv_all(_host_prod(diff))
+
+
 def host_lagrange_coeffs(xs, targets) -> np.ndarray:
     """Exact Lagrange basis matrix  L[t, j] = prod_{l != j} (z_t - x_l)/(x_j - x_l)
     over F_p.  xs: interpolation nodes (len n); targets: evaluation points
     (len m).  Returns (m, n) int32 in [0, p)."""
-    xs = [int(x) % P for x in xs]
-    ts = [int(t) % P for t in targets]
-    n = len(xs)
-    out = np.zeros((len(ts), n), dtype=np.int64)
-    for ti, z in enumerate(ts):
-        for j in range(n):
-            num, den = 1, 1
-            for l in range(n):
-                if l == j:
-                    continue
-                num = (num * ((z - xs[l]) % P)) % P
-                den = (den * ((xs[j] - xs[l]) % P)) % P
-            out[ti, j] = (num * host_inv(den)) % P
-    return out.astype(np.int32)
+    num, w = host_lagrange_parts(xs, targets)
+    return (num * w % P).astype(np.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -51,9 +51,15 @@ def lcc_encode(blocks, mask_blocks, alphas: Sequence[int], betas: Sequence[int])
     """Encode (K, B, D) data blocks + (T, B, D) masks -> (N, B, D) coded slices.
 
     Works equally on secret *shares* of the blocks (encoding is linear)."""
+    e = torch.from_numpy(encode_matrix(alphas, betas)).to(blocks.device)
+    return _lcc_encode_with(e, blocks, mask_blocks)
+
+
+def _lcc_encode_with(e, blocks, mask_blocks):
+    """lcc_encode against an (N, K+T) encode matrix `e` already on the
+    blocks' device (a caller that encodes many times builds it once)."""
     stacked = torch.cat([blocks, mask_blocks], dim=0)        # (K+T, B, D)
     kt = stacked.shape[0]
-    e = torch.from_numpy(encode_matrix(alphas, betas)).to(stacked.device)
     coded = field.matmul(e, stacked.reshape(kt, -1))
     return coded.reshape((e.shape[0],) + stacked.shape[1:])
 

@@ -287,8 +287,8 @@ class Copml:
                               device=dev)
             for h in range(holders):
                 blocks, _ = lagrange.partition_rows(x_shares[h], cfg.k)
-                enc[h] = lagrange.lcc_encode(blocks, z_shares[h],
-                                             self.alphas, self.betas)
+                enc[h] = lagrange._lcc_encode_with(self._enc, blocks,
+                                                   z_shares[h])
             del blocks, z_shares
             coded_x = shamir.reconstruct(enc, cfg.t, self.lambdas)
             del enc                                       # coded_x (N, mk, d)
@@ -357,11 +357,11 @@ class Copml:
 
     def _decode_vec(self, subset) -> Public:
         """Host-side (R,) decode row: sum_k D[k, :] over the K decode-matrix
-        rows, mod p."""
-        sub_alphas = [self.alphas[i] for i in subset]
-        dmat = lagrange.decode_matrix(
-            sub_alphas, self.betas[: self.cfg.k]).astype(np.int64)
-        return (dmat.sum(axis=0) % field.P).astype(np.int32)
+        rows, mod p, in the barycentric form without forming D:
+        dvec_j = w_j * sum_k prod_{l != j} (beta_k - alpha_l)."""
+        num, w = field.host_lagrange_parts(
+            [self.alphas[i] for i in subset], self.betas[: self.cfg.k])
+        return (num.sum(axis=0) % field.P * w % field.P).astype(np.int32)
 
     def _decode_row(self, subset):
         """(subset_idx, dvec, dfull) device tensors of a static subset (None

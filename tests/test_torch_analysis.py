@@ -234,9 +234,10 @@ def test_corrupted_protocol_dropped_reduction_is_flagged(tmp_path):
     """Removing the `% field.P` before the int32 narrow in _decode_vec
     -> FLD002."""
     src = _protocol_source()
-    anchor = "(dmat.sum(axis=0) % field.P).astype(np.int32)"
+    anchor = "(num.sum(axis=0) % field.P * w % field.P).astype(np.int32)"
     assert anchor in src, "protocol.py changed; update the corruption drill"
-    bad = src.replace(anchor, "dmat.sum(axis=0).astype(np.int32)", 1)
+    bad = src.replace(anchor, "(num.sum(axis=0) % field.P * w).astype(np.int32)",
+                      1)
     proc = _analyze_corrupted(tmp_path, bad)
     assert proc.returncode == 1
     assert "FLD002" in proc.stdout

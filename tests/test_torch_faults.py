@@ -13,11 +13,12 @@ import torch
 
 import jax.numpy as jnp
 from repro.api import faults as jfaults
+from repro.core import lagrange as jlagrange
 from repro.core import mpc as jmpc
 from repro.core import shamir as jshamir
 from repro.train import elastic as jelastic
 from repro_torch import api
-from repro_torch.api import faults
+from repro_torch.api import faults, workloads
 from repro_torch.core import field, mpc, protocol, shamir
 from repro_torch.train import elastic
 
@@ -173,3 +174,31 @@ def test_step_subsets_and_dynamic_reconstruct_match_jax():
     got = mpc.add_public(torch.from_numpy(shares), field.P + 12345)
     want = jmpc.add_public(jnp.asarray(shares), field.P + 12345)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("name,straggle_p", [("smoke_straggler", 0.2),
+                                             ("cifar10_case2", 0.02)])
+def test_plan_decode_rows_equal_the_matrix_sums(name, straggle_p):
+    """Copml._decode_vec and plan_constants give, for every subset of a
+    drawn plan, the K x R decode matrix summed over its K rows mod p (the
+    JAX package's Python-int matrix)."""
+    wl = workloads.get(name)
+    cfg, r = wl.cfg, wl.cfg.recovery_threshold
+    proto = protocol.Copml(cfg, wl.m, wl.d, objective=wl.objective,
+                           device="cpu")
+    plan = faults.FaultPlan.random(cfg.n_clients, 12, seed=11,
+                                   straggle_p=straggle_p, min_available=r)
+    subsets = [tuple(s)[:r] for s in plan.subsets(r)]
+    assert len(set(subsets)) > 2
+    want = np.stack([
+        (np.asarray(jlagrange.decode_matrix(
+            [proto.alphas[i] for i in s], proto.betas[:cfg.k]),
+            np.int64).sum(axis=0) % field.P).astype(np.int32)
+        for s in subsets])
+    for s, sub in enumerate(subsets):
+        got = proto._decode_vec(sub)
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, want[s])
+    idx, dvs = proto.plan_constants(plan.subsets(r))
+    np.testing.assert_array_equal(idx.numpy(), np.array(subsets))
+    np.testing.assert_array_equal(dvs.numpy(), want)

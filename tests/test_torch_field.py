@@ -102,6 +102,80 @@ def test_poly_and_host_helpers():
         jlagrange.encode_matrix((9, 10, 11), (1, 2)))
 
 
+def _lagrange_loop(xs, targets):
+    """The plain reference: L[t, j] = prod_{l != j} (z_t - x_l)/(x_j - x_l)
+    as a triple loop over Python ints with one pow an entry (a zero
+    denominator inverts to 0)."""
+    xs = [int(x) % P for x in xs]
+    ts = [int(t) % P for t in targets]
+    out = np.zeros((len(ts), len(xs)), dtype=np.int64)
+    for ti, z in enumerate(ts):
+        for j, xj in enumerate(xs):
+            num, den = 1, 1
+            for l, xl in enumerate(xs):
+                if l != j:
+                    num = num * ((z - xl) % P) % P
+                    den = den * ((xj - xl) % P) % P
+            out[ti, j] = num * pow(den, P - 2, P) % P
+    return out.astype(np.int32)
+
+
+_CIFAR = lagrange.default_points(50, 10, 7)       # (alphas, betas)
+_GISETTE = lagrange.default_points(50, 16, 1)
+LAGRANGE_CASES = {    # (nodes, targets)
+    "cifar10_case2.encode": (_CIFAR[1], _CIFAR[0]),
+    "cifar10_case2.decode": (_CIFAR[0][:49], _CIFAR[1][:10]),
+    "gisette_case1.encode": (_GISETTE[1], _GISETTE[0]),
+    "gisette_case1.decode": (_GISETTE[0][:49], _GISETTE[1][:16]),
+    "recon_at_zero": (tuple(range(68, 76)), (0,)),
+    "recon_all_at_zero": (tuple(range(68, 118)), (0,)),
+    "target_on_a_node": ((3, 5, 8, 11), (8, 0, 3, 11, 6)),
+    "unsorted_nodes": ((40, 7, 23, 1, 99, 12), (5, 64, 2, 0)),
+    "outside_the_field": ((P + 3, -4, 2 ** 70, -P - 9, 2 * P + 1),
+                          (-1, P, 2 ** 40 + 3, -2 ** 65, P + 3)),
+    "one_node": ((7,), (1, 7, P + 7)),
+    "no_targets": ((1, 2, 3), ()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAGRANGE_CASES))
+def test_host_lagrange_coeffs_equal_the_loop(case):
+    """The barycentric form gives the triple loop's (m, n) int32 array,
+    element for element: the three configurations' encode and decode
+    shapes, z = 0, targets on nodes, unsorted nodes, points outside [0, p)."""
+    xs, ts = LAGRANGE_CASES[case]
+    got = field.host_lagrange_coeffs(xs, ts)
+    assert got.dtype == np.int32 and got.shape == (len(ts), len(xs))
+    _eq(got, _lagrange_loop(xs, ts))
+
+
+@pytest.mark.parametrize("dropped", range(50))
+def test_one_straggler_decode_matrices_equal_the_loop(dropped):
+    """Every one-straggler subset of N = 50 (R = 49) at both Case 1 and
+    Case 2 decode targets."""
+    for (alphas, betas), k in ((_CIFAR, 10), (_GISETTE, 16)):
+        sub = alphas[:dropped] + alphas[dropped + 1:]
+        _eq(lagrange.decode_matrix(sub, betas[:k]),
+            _lagrange_loop(sub, betas[:k]))
+
+
+def test_duplicate_nodes_keep_the_loops_zero_columns():
+    """Duplicate nodes (equal mod p) have a zero denominator, which inverts
+    to 0 as host_inv(0) does: their columns are 0, the rest is the loop's."""
+    xs, ts = (1, 2, 2, 9, 2 + P, 7), (2, 7, 0, 4, P + 9)
+    got = field.host_lagrange_coeffs(xs, ts)
+    _eq(got, _lagrange_loop(xs, ts))
+    assert not got[:, [1, 2, 4]].any()
+    _eq(got[1], [0, 0, 0, 0, 0, 1])
+    assert got[[2, 3], 0].all()
+
+
+def test_host_inv_all_matches_host_inv():
+    a = np.array([0, 1, 2, P - 1, 12345, 0, 777, P - 2], np.int64)
+    _eq(field.host_inv_all(a), [field.host_inv(v) for v in a])
+    assert field.host_inv_all(np.zeros(0, np.int64)).shape == (0,)
+
+
 def test_lcc_encode_decode_match_jax():
     """LCC encode of (K, B, D) blocks + (T, B, D) masks, then decode of the
     blocks from R = K+T encodings (a degree-1 'gradient')."""

@@ -17,10 +17,11 @@ import pytest
 import torch
 
 from repro.api import workloads as jworkloads
+from repro.core import lagrange as jlagrange
 from repro.core.protocol import Copml as JCopml
 from repro_torch import api
 from repro_torch.api import workloads
-from repro_torch.core import meshutil, protocol, quantize
+from repro_torch.core import lagrange, meshutil, protocol, quantize
 from repro_torch.core import random as jrandom
 
 GOLDEN_W = [0.25, -0.375, 0.375, 0.5, -0.125, 0.25, 0.875, 1.25, -0.5,
@@ -86,6 +87,38 @@ def test_setup_and_iteration_match_jax(name):
     _eq(tnext.w_shares, jnext.w_shares)
     assert tnext.step == int(jnext.step) == 1
     _eq(tproto.open_model(tnext), jproto.open_model(jnext))
+
+
+def test_setup_encodes_with_the_drivers_matrix(monkeypatch):
+    """Set-up's LCC encode takes Copml._enc, built once, for each of the
+    T+1 holders; its state equals a set-up that rebuilds the encode matrix
+    for every holder (the JAX package's Python-int matrix), bit for bit."""
+    wl = workloads.get("cifar10_like")               # K = 3, T = 2, N = 15
+    cx, cy = wl.client_data()
+    proto = protocol.Copml(wl.cfg, wl.m, wl.d, objective=wl.objective,
+                           device="cpu")
+    key = jrandom.PRNGKey(4)
+    real, mats = lagrange._lcc_encode_with, []
+
+    def spy(e, blocks, masks):
+        mats.append(e)
+        return real(e, blocks, masks)
+
+    def rebuild(e, blocks, masks):
+        mats.append(e)
+        return real(torch.from_numpy(np.asarray(jlagrange.encode_matrix(
+            proto.alphas, proto.betas))), blocks, masks)
+
+    monkeypatch.setattr(lagrange, "_lcc_encode_with", spy)
+    got = proto.setup(key, cx, cy)
+    assert len(mats) == wl.cfg.t + 1
+    assert all(m is proto._enc for m in mats)
+    monkeypatch.setattr(lagrange, "_lcc_encode_with", rebuild)
+    want = proto.setup(key, cx, cy)
+    assert len(mats) == 2 * (wl.cfg.t + 1)
+    _eq(got.coded_x, want.coded_x)
+    _eq(got.w_shares, want.w_shares)
+    _eq(got.xty_shares, want.xty_shares)
 
 
 def _concatenated_rows(proto, client_xs, client_ys):
