@@ -176,4 +176,5 @@ def _field_safe_cfg(cfg: CopmlConfig, m: int, name: str) -> CopmlConfig:
 # is only materialized if a fit actually asks for it)
 for _w in copml_logreg.WORKLOADS.values():
     register(Workload(_w.name, m=_w.m, d=_w.d,
-                      cfg=_field_safe_cfg(_w.cfg, _w.m, _w.name), iters=50))
+                      cfg=_field_safe_cfg(_w.cfg, _w.m, _w.name), iters=50,
+                      objective=_w.objective))

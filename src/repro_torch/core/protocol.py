@@ -296,9 +296,10 @@ class Copml:
         # Phase 2d: X^T y via one secure matmul; a matrix objective
         # contracts against all C target columns at once
         y_mat = y_shares if self.out_shape else y_shares[..., None]
-        xty_shares = self._mul(
-            keys[4], x_shares.transpose(1, 2), y_mat,
-            cfg.t, matmul=True, points=self.lambdas)     # (N, d, C')
+        with obs.span("setup.xty"):
+            xty_shares = self._mul(
+                keys[4], x_shares.transpose(1, 2), y_mat,
+                cfg.t, matmul=True, points=self.lambdas)  # (N, d, C')
         if not self.out_shape:
             xty_shares = xty_shares[..., 0]
         del x_shares

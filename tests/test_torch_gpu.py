@@ -70,10 +70,13 @@ def test_modmatmul_batched_matches_plain(cuda):
         ref.modmatmul_batched(row[None, None].expand(13, 1, 13), mix))
 
 
-@pytest.mark.parametrize("n,c", [(5, 1), (13, 10)])
-def test_fused_step_matches_plain(cuda, n, c):
+@pytest.mark.parametrize("n,c,m,d", [
+    pytest.param(5, 1, 37, 29, id="5-1"),
+    pytest.param(13, 10, 37, 29, id="13-10"),
+    # cifar10_ovr10_case2's instance: (d, 10) partials in shared memory
+    pytest.param(50, 10, 64, 3073, id="50-10-smem")])
+def test_fused_step_matches_plain(cuda, n, c, m, d):
     rng = np.random.default_rng(n + c)
-    m, d = 37, 29
     shapes = [(n, m, d), (n, d, c), (2,), (n,), (n,), (n,)] + [(n, d, c)] * 5
     args = [_fld(rng, *s) for s in shapes]
     kw = dict(q_eta=3, inv2k1=field.host_inv(1 << 8), k1=8)

@@ -160,7 +160,7 @@ def test_span_names_are_not_the_benchmarks():
         names |= set(re.findall(r'obs\.span\(\s*"([^"]+)"',
                                 path.read_text()))
     assert names == {"setup.rows", "setup.share", "setup.lcc",
-                     "setup.faults", "train.step",
+                     "setup.xty", "setup.faults", "train.step",
                      "step.encode", "step.masks", "step.open",
                      "random.threefry", "serve.quantize", "serve.fetch"}
     assert not names & BENCH_RANGES
